@@ -1,0 +1,624 @@
+"""Logical plan nodes.
+
+Analog of presto-main's PlanNode hierarchy
+(sql/planner/plan/*.java — 45 node types) reduced to the executed surface.
+Every node exposes `output`: an ordered list of (symbol, Type). Symbols are
+unique column names within a plan (Presto's Symbol allocator —
+sql/planner/SymbolAllocator.java).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+from presto_tpu_torch.expr.ir import RowExpression
+from presto_tpu_torch.types import Type
+
+
+class PlanNode:
+    output: List[Tuple[str, Type]]
+
+    @property
+    def out_names(self) -> List[str]:
+        return [n for n, _ in self.output]
+
+    def children(self) -> List["PlanNode"]:
+        return []
+
+
+@dataclasses.dataclass
+class TableScan(PlanNode):
+    catalog: str
+    table: str
+    # symbol -> source column name
+    assignments: Dict[str, str] = dataclasses.field(default_factory=dict)
+    output: List[Tuple[str, Type]] = dataclasses.field(default_factory=list)
+    # column-name-keyed (lo, hi) bounds derived from filters above this scan
+    # (TupleDomain pushdown; connectors use them to prune splits/row-groups)
+    constraints: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class Filter(PlanNode):
+    child: PlanNode
+    predicate: RowExpression
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class Project(PlanNode):
+    child: PlanNode
+    # ordered (symbol, expression); identity projections are InputRefs
+    exprs: List[Tuple[str, RowExpression]]
+
+    @property
+    def output(self):
+        return [(n, e.type) for n, e in self.exprs]
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class AggSpec:
+    symbol: str
+    fn: str  # sum|count|count_star|avg|min|max|variance family|covar|corr|
+    #          bool_and|bool_or|arbitrary|checksum|count_if|geometric_mean|
+    #          approx_percentile|max_by|min_by
+    arg: Optional[str]  # input symbol (None for count_star)
+    type: Type  # output type
+    distinct: bool = False
+    arg2: Optional[str] = None  # second input (covar/corr/max_by/min_by)
+    param: Optional[float] = None  # constant parameter (approx_percentile p)
+
+
+@dataclasses.dataclass
+class Aggregate(PlanNode):
+    child: PlanNode
+    group_keys: List[str]  # input symbols
+    aggs: List[AggSpec]
+    # step mirrors Presto's AggregationNode.Step: SINGLE initially; the
+    # fragmenter splits into PARTIAL (emits state columns) / FINAL (merges
+    # state columns arriving through the exchange)
+    step: str = "single"
+
+    @property
+    def output(self):
+        if self.step == "partial":
+            from presto_tpu_torch.plan.agg_states import partial_output
+
+            return partial_output(self.child.output, self.group_keys, self.aggs)
+        key_types = dict(self.child.output)
+        return [(k, key_types[k]) for k in self.group_keys] + [
+            (a.symbol, a.type) for a in self.aggs
+        ]
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class TableWriter(PlanNode):
+    """Scaled writes: each task writes its stream as one part of the
+    target table and emits its row count (reference: TableWriterOperator
+    + SystemPartitioningHandle.SCALED_WRITER_DISTRIBUTION; the
+    TableFinish sum happens coordinator-side over the gathered counts)."""
+
+    child: PlanNode
+    catalog: str
+    table: str
+    write_id: str  # unique per statement (part-file namespace)
+
+    @property
+    def output(self):
+        from presto_tpu_torch.types import BIGINT
+
+        return [("rows", BIGINT)]
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class OneRow(PlanNode):
+    """A single live row with no columns (reference: planner/plan
+    ValuesNode's single-row degenerate form) — the child of a top-level
+    FROM UNNEST(constant array)."""
+
+    output: List[Tuple[str, Type]] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class Unnest(PlanNode):
+    """Expand ARRAY/MAP columns into rows (operator/unnest/UnnestOperator
+    redesigned for the dense padded layout: output row j of input row i
+    exists iff j < max over sources of sizes[i] — a static [cap, W] →
+    [cap*W] reshape, no per-position offset walking).
+
+    `sources`: child symbols holding the array/map columns to expand.
+    `replicate`: child symbols carried through (repeated per element).
+    `out_syms[i]`: output symbols for sources[i] — [elem] for arrays,
+    [key, value] for maps. `ordinality_sym`: the WITH ORDINALITY column.
+    """
+
+    child: PlanNode
+    sources: List[str]
+    replicate: List[str]
+    out_syms: List[List[str]]
+    out_types: List[List[Type]]
+    ordinality_sym: Optional[str] = None
+
+    @property
+    def output(self):
+        child_types = dict(self.child.output)
+        out = [(s, child_types[s]) for s in self.replicate]
+        for syms, types in zip(self.out_syms, self.out_types):
+            out.extend(zip(syms, types))
+        if self.ordinality_sym:
+            from presto_tpu_torch.types import BIGINT
+
+            out.append((self.ordinality_sym, BIGINT))
+        return out
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class RemoteSource(PlanNode):
+    """Leaf reading pages from an upstream fragment through the exchange
+    (reference: plan/RemoteSourceNode + operator/ExchangeOperator.java:35)."""
+
+    fragment_id: int
+    output: List[Tuple[str, Type]] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class HashJoin(PlanNode):
+    kind: str  # inner | left
+    left: PlanNode  # probe
+    right: PlanNode  # build
+    left_keys: List[str]
+    right_keys: List[str]
+    residual: Optional[RowExpression] = None
+    # planner hint: build side keys are unique (dimension table)
+    build_unique: bool = False
+    # colocated bucketed join (ConnectorNodePartitioningProvider /
+    # grouped execution): both sides scan tables bucketed on the join
+    # keys with this bucket count — no exchange; the runtime drives the
+    # join bucket-by-bucket (lifespans). 0 = not colocated.
+    colocated: int = 0
+
+    @property
+    def output(self):
+        return list(self.left.output) + list(self.right.output)
+
+    def children(self):
+        return [self.left, self.right]
+
+
+@dataclasses.dataclass
+class MultiwayJoin(PlanNode):
+    """N-ary join: one probe child, N resident build children probed in a
+    single pass (PAPERS.md 1905.13376). Produced by plan/multiway.py when
+    a left-deep chain of inner/left equi-joins shares one probe pipeline
+    (the star-schema shape of q3/q5/q9/q64); semantically identical to the
+    equivalent left-deep HashJoin nesting, with `builds[i]` the build side
+    of the i-th join bottom-up.
+
+    `probe_keys[i]` resolve against the probe output or against the
+    payload of an EARLIER build j<i with `build_unique[j]` — a probe row
+    has at most one match there, so the key value is well-defined per
+    probe row (snowflake chains like lineitem⋈orders⋈customer)."""
+
+    probe: PlanNode
+    builds: List[PlanNode]
+    kinds: List[str]                 # inner | left, per build
+    probe_keys: List[List[str]]
+    build_keys: List[List[str]]
+    build_unique: List[bool]
+
+    @property
+    def output(self):
+        out = list(self.probe.output)
+        for b in self.builds:
+            out.extend(b.output)
+        return out
+
+    def children(self):
+        return [self.probe] + list(self.builds)
+
+
+@dataclasses.dataclass
+class NestedLoopJoin(PlanNode):
+    """Inner join with no equi keys (pure cross product or non-equi ON
+    condition). Reference: NestedLoopJoinOperator.java + NestedLoopBuild
+    Operator (inner-only there too). Executed as probe×build-chunk
+    expansion with the residual fused (exec/runtime._execute_nljoin)."""
+
+    left: PlanNode   # probe (streamed)
+    right: PlanNode  # build (collected, broadcast in distributed plans)
+    residual: Optional[RowExpression] = None
+
+    @property
+    def output(self):
+        return list(self.left.output) + list(self.right.output)
+
+    def children(self):
+        return [self.left, self.right]
+
+
+@dataclasses.dataclass
+class IndexJoin(PlanNode):
+    """Join whose build side is a connector keyed-lookup instead of a scan
+    (reference: IndexJoinNode via IndexJoinOptimizer.java + operator/index/
+    IndexLoader.java): each probe batch's key values are fed to the
+    connector index, which returns only matching rows — no full-table
+    build. Planned by plan/optimizer.make_index_joins when the connector
+    exposes an index over exactly the join keys."""
+
+    kind: str                      # inner | left
+    left: PlanNode                 # probe (streamed)
+    catalog: str                   # index-side connector/table
+    table: str
+    left_keys: List[str] = dataclasses.field(default_factory=list)
+    index_key_cols: List[str] = dataclasses.field(default_factory=list)
+    # symbol -> source column name for the index-side output (includes keys)
+    assignments: Dict[str, str] = dataclasses.field(default_factory=dict)
+    index_output: List[Tuple[str, Type]] = dataclasses.field(
+        default_factory=list)
+    # build-side keys are unique (primary-key index): single-match probe
+    build_unique: bool = True
+
+    @property
+    def output(self):
+        return list(self.left.output) + list(self.index_output)
+
+    def children(self):
+        return [self.left]
+
+
+@dataclasses.dataclass
+class SemiJoin(PlanNode):
+    """left [NOT] IN (subquery) / [NOT] EXISTS — probe side filtered by
+    membership (reference: HashSemiJoinOperator / SemiJoinNode). Multi-key
+    with an optional residual predicate over (probe ∪ build) columns covers
+    correlated EXISTS with non-equi correlation (TPC-H Q21's
+    `l2.l_suppkey <> l1.l_suppkey`)."""
+
+    left: PlanNode
+    right: PlanNode
+    left_keys: List[str]
+    right_keys: List[str]
+    negated: bool = False
+    residual: Optional[RowExpression] = None
+    # True for [NOT] IN (NULL key ⇒ NULL membership), False for [NOT] EXISTS
+    # (NULL correlation key simply never matches)
+    null_aware: bool = True
+
+    @property
+    def output(self):
+        return self.left.output
+
+    def children(self):
+        return [self.left, self.right]
+
+
+@dataclasses.dataclass
+class SetOp(PlanNode):
+    """UNION [ALL] / INTERSECT / EXCEPT (reference: planner/plan/UnionNode,
+    IntersectNode, ExceptNode + SetOperationNodeTranslator rewrites).
+
+    Both children produce `arity` columns; the executor renames each
+    child's output positionally onto `symbols` (types taken from the left
+    child). DISTINCT variants dedup/membership-test with NULLs-equal
+    semantics after aligning string dictionaries."""
+
+    kind: str  # 'union' | 'intersect' | 'except'
+    all: bool
+    left: PlanNode
+    right: PlanNode
+    symbols: List[str]
+    types: List[Type]
+
+    @property
+    def output(self):
+        return list(zip(self.symbols, self.types))
+
+    def children(self):
+        return [self.left, self.right]
+
+
+@dataclasses.dataclass
+class SortItem:
+    symbol: str
+    ascending: bool = True
+    nulls_first: Optional[bool] = None
+
+
+@dataclasses.dataclass
+class WindowFunc:
+    """One window function instance (reference: operator/window/*)."""
+
+    symbol: str
+    fn: str                       # row_number|rank|dense_rank|percent_rank|
+                                  # cume_dist|ntile|lag|lead|first_value|
+                                  # last_value|nth_value|sum|avg|min|max|count
+    type: Type
+    arg: Optional[str] = None     # input column symbol (value functions/aggs)
+    param: Optional[int] = None   # ntile buckets / lag-lead offset / nth n
+    # None = default frame (RANGE UNBOUNDED..CURRENT with ORDER BY, whole
+    # partition without); "rows_unbounded_current" = explicit ROWS frame
+    frame: Optional[str] = None
+    # lag/lead third argument: value when the offset leaves the partition
+    default: Optional[object] = None
+
+
+@dataclasses.dataclass
+class Window(PlanNode):
+    """Window functions over one (PARTITION BY, ORDER BY) spec. Multiple
+    specs chain as stacked Window nodes (reference: WindowOperator.java:47;
+    the local planner similarly splits by specification)."""
+
+    child: PlanNode
+    partition_keys: List[str]
+    order_items: List[SortItem]
+    funcs: List[WindowFunc]
+
+    @property
+    def output(self):
+        return list(self.child.output) + [(f.symbol, f.type) for f in self.funcs]
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class Sort(PlanNode):
+    child: PlanNode
+    keys: List[SortItem]
+    limit: Optional[int] = None  # TopN fusion (TopNNode)
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class Limit(PlanNode):
+    child: PlanNode
+    count: int
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class HostProject(PlanNode):
+    """Host-side finishing projection at the query root: string-PRODUCING
+    functions over unbounded value domains (CAST(numeric AS varchar),
+    date_format) cannot be dictionary transforms — there is no input
+    dictionary to expand. They run on the host over the (gathered) final
+    rows instead, formatting per distinct value and re-encoding
+    (reference: these are ordinary scalars in the row-at-a-time JVM
+    engine; here they are the one projection class the device cannot
+    express, so it executes where the rows already materialize)."""
+
+    child: PlanNode
+    # (out_symbol, kind, in_symbol, param): kind ∈ {"varchar_cast",
+    # "date_format"}; param is the constant format for date_format
+    items: List[tuple]
+
+    @property
+    def output(self):
+        from presto_tpu_torch.types import VARCHAR
+
+        return list(self.child.output) + [
+            (sym, VARCHAR) for sym, _, _, _ in self.items]
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class Output(PlanNode):
+    child: PlanNode
+    names: List[str]  # user-facing column names
+    symbols: List[str]
+
+    @property
+    def output(self):
+        types = dict(self.child.output)
+        return [(n, types[s]) for n, s in zip(self.names, self.symbols)]
+
+    def children(self):
+        return [self.child]
+
+
+@dataclasses.dataclass
+class QueryPlan:
+    root: Output
+    # uncorrelated scalar subqueries: symbol -> plan producing 1 row / 1 col;
+    # the executor evaluates these first and binds them as constants
+    scalar_subqueries: Dict[str, "QueryPlan"] = dataclasses.field(default_factory=dict)
+    # False when the plan baked in per-query state (now()/current_date
+    # constants): caches must not serve it to later queries
+    cacheable: bool = True
+
+
+def plan_to_string(node: PlanNode, indent: int = 0, node_stats=None,
+                   shape_budgets=None) -> str:
+    """EXPLAIN-style rendering (reference: sql/planner/planPrinter); with
+    node_stats, renders EXPLAIN ANALYZE-style per-operator output rows /
+    batches / wall time (ExplainAnalyzeOperator analog). `shape_budgets`
+    is an optional (global, scan, breaker) budget triple for the
+    headroom rendering; executed nodes always render their worst
+    program's compiled-shape count against the node's class budget, so
+    how close a plan runs to the bounded-shapes guard is visible in
+    EXPLAIN output, not only as a guard failure."""
+    pad = "  " * indent
+    if isinstance(node, TableScan):
+        cols = ", ".join(f"{s}:={c}" for s, c in node.assignments.items())
+        s = f"{pad}TableScan[{node.catalog}.{node.table}] {cols}"
+    elif isinstance(node, Filter):
+        s = f"{pad}Filter[{node.predicate}]"
+    elif isinstance(node, Project):
+        s = f"{pad}Project[{', '.join(f'{n} := {e}' for n, e in node.exprs)}]"
+    elif isinstance(node, Aggregate):
+        aggs = ", ".join(f"{a.symbol} := {a.fn}({a.arg or '*'})" for a in node.aggs)
+        s = f"{pad}Aggregate[{node.step}; keys={node.group_keys}; {aggs}]"
+    elif isinstance(node, HashJoin):
+        s = (f"{pad}HashJoin[{node.kind}; {node.left_keys} = "
+             f"{node.right_keys}{'; unique' if node.build_unique else ''}"
+             f"{f'; colocated={node.colocated} buckets' if node.colocated else ''}]")
+    elif isinstance(node, MultiwayJoin):
+        legs = "; ".join(
+            f"{k}:{pk} = {bk}{'*' if u else ''}"
+            for k, pk, bk, u in zip(node.kinds, node.probe_keys,
+                                    node.build_keys, node.build_unique))
+        s = f"{pad}MultiwayJoin[{len(node.builds)} builds; {legs}]"
+    elif isinstance(node, IndexJoin):
+        s = (f"{pad}IndexJoin[{node.kind}; {node.left_keys} = "
+             f"{node.catalog}.{node.table}({node.index_key_cols})]")
+    elif isinstance(node, SemiJoin):
+        s = (f"{pad}SemiJoin[{'NOT ' if node.negated else ''}{node.left_keys} IN "
+             f"{node.right_keys}{f'; residual={node.residual}' if node.residual else ''}]")
+    elif isinstance(node, SetOp):
+        s = f"{pad}SetOp[{node.kind}{' all' if node.all else ''}]"
+    elif isinstance(node, Sort):
+        keys = ", ".join(f"{k.symbol}{'' if k.ascending else ' desc'}" for k in node.keys)
+        s = f"{pad}Sort[{keys}{f'; limit={node.limit}' if node.limit else ''}]"
+    elif isinstance(node, Window):
+        fns = ", ".join(f"{f.symbol} := {f.fn}({f.arg or ''})" for f in node.funcs)
+        s = (f"{pad}Window[partition={node.partition_keys}; "
+             f"order={[k.symbol for k in node.order_items]}; {fns}]")
+    elif isinstance(node, Limit):
+        s = f"{pad}Limit[{node.count}]"
+    elif isinstance(node, RemoteSource):
+        s = f"{pad}RemoteSource[fragment {node.fragment_id}]"
+    elif isinstance(node, Output):
+        s = f"{pad}Output[{', '.join(node.names)}]"
+    else:
+        s = f"{pad}{type(node).__name__}"
+    beng = node.__dict__.get("_breaker_engine")
+    if beng is not None:
+        why = node.__dict__.get("_breaker_engine_why")
+        s += f"   [engine={beng}{f': {why}' if why else ''}]"
+    jm = node.__dict__.get("_join_mode")
+    if jm is not None:
+        jwhy = node.__dict__.get("_join_mode_why")
+        s += f"   [join={jm}{f': {jwhy}' if jwhy else ''}]"
+    rs = node.__dict__.get("_runstats")
+    if rs is not None and node_stats is not None:
+        # estimate-vs-actual drift stamped by obs/runstats observation
+        # sites; EXPLAIN ANALYZE only — plain EXPLAIN stays estimate-land
+        est, actual = rs.get("est"), rs.get("actual")
+        if est and actual:
+            s += (f"   [est={est:.3g} actual={actual:.3g} "
+                  f"drift={actual / est:.2g}x]")
+    aa = node.__dict__.get("_adaptive_actions")
+    if aa:
+        # in-run adaptation trail (exec/adaptive.py): every decision the
+        # adaptive layer took (or, in observe mode, WOULD have taken —
+        # prefixed "would") at this node, in decision order
+        s += f"   [adaptive: {'; '.join(aa)}]"
+    sp = node.__dict__.get("_spill_stats")
+    if sp is not None and (sp.get("partitions") or sp.get("repartitions")
+                           or sp.get("revocations")):
+        # dynamic hybrid hash spill shape stamped by exec/runtime.py's
+        # spill drivers: final leaf count, next-hash-bits splits, max
+        # recursion depth, role reversals, pool-pressure revocations
+        s += (f"   [spill: P={sp['partitions']} "
+              f"repartitions={sp['repartitions']} depth={sp['depth']} "
+              f"reversed={sp['reversed']} revoked={sp['revocations']} "
+              f"bytes={sp['bytes']}]")
+    frag = node.__dict__.get("_fragment_fusion")
+    if frag is not None:
+        fs = node.__dict__.get("_fragment_stats")
+        if fs and (fs.get("fragment_dispatches") or fs.get("batch_dispatches")):
+            s += (f"   [fragment={frag}; dispatches="
+                  f"{fs['fragment_dispatches']}fused"
+                  f"({fs['fused_batches']} batches)"
+                  f"+{fs['batch_dispatches']}per-batch]")
+        else:
+            s += f"   [fragment={frag}]"
+    jstats = getattr(node, "_jit_stats", None)
+    if node_stats and id(node) in node_stats:
+        st = node_stats[id(node)]
+        s += (f"   [rows={int(st['rows'])}, batches={int(st['batches'])}, "
+              f"wall={st['wall_s']*1000:.1f}ms")
+        if st.get("bytes"):
+            s += f", bytes={int(st['bytes'])}"
+        compiles = sum(v["compiles"] for v in jstats.values()) if jstats \
+            else 0
+        if compiles:
+            # split the measured wall into compile vs execute: recompiles
+            # (capacity growth, new batch shapes) show up HERE, not as
+            # mysteriously slow operators
+            cwall = sum(v["compile_wall_s"] for v in jstats.values())
+            s += (f", compiles={compiles}, compile={cwall:.2f}s, "
+                  f"execute={max(0.0, st['wall_s'] - cwall):.2f}s")
+            s += _shape_headroom(node, jstats, shape_budgets)
+        s += "]"
+        s += _devprof_annotation(jstats)
+    elif jstats:
+        # an executed node renders its recompile profile even without the
+        # EXPLAIN ANALYZE stats map: distinct programs × compiled shapes
+        # is the bounded-shapes contract analysis/recompile.py enforces
+        compiles = sum(v["compiles"] for v in jstats.values())
+        cwall = sum(v["compile_wall_s"] for v in jstats.values())
+        if compiles:
+            s += (f"   [programs={len(jstats)}, compiles={compiles}, "
+                  f"compile_wall={cwall:.2f}s"
+                  f"{_shape_headroom(node, jstats, shape_budgets)}]")
+        s += _devprof_annotation(jstats)
+    return s + "".join(
+        "\n" + plan_to_string(c, indent + 1, node_stats, shape_budgets)
+        for c in node.children()
+    )
+
+
+def _devprof_annotation(jstats) -> str:
+    """'   [peak=… flops=… bytes=… ai=…]' — XLA's own cost/memory analysis
+    of the node's compiled programs, stamped into _jit_stats by the
+    obs/devprof plane (devprof=on only; off renders nothing, keeping the
+    pre-devprof output bit-for-bit). ai = flops per byte accessed — the
+    roofline x-axis."""
+    if not jstats:
+        return ""
+    flops = sum(v.get("flops", 0.0) for v in jstats.values())
+    byts = sum(v.get("bytes_accessed", 0.0) for v in jstats.values())
+    peak = max((v.get("footprint_bytes", 0.0) for v in jstats.values()),
+               default=0.0)
+    if not (flops or byts or peak):
+        return ""
+    parts = []
+    if peak:
+        parts.append(f"peak={int(peak):,}")
+    if flops:
+        parts.append(f"flops={flops:.4g}")
+    if byts:
+        parts.append(f"bytes={byts:.4g}")
+    if flops and byts:
+        parts.append(f"ai={flops / byts:.2f}")
+    return "   [" + " ".join(parts) + "]"
+
+
+def _shape_headroom(node, jstats, shape_budgets) -> str:
+    """Empty: the port runs eagerly and compiles no programs, so there is
+    no per-node compiled-shape budget to report."""
+    return ""

@@ -1,0 +1,393 @@
+"""Logical plan optimization passes.
+
+Analog of sql/planner/PlanOptimizers.java (76 passes) reduced to the ones
+that matter for this execution model:
+
+- PredicatePushdown (optimizations/PredicatePushDown.java): split conjuncts,
+  push each to the deepest node whose output covers its inputs — through
+  Projects (with substitution), past Joins into the covering side, below
+  Aggregates when the conjunct only references group keys.
+- PruneUnreferencedOutputs / PushdownSubfields-style column pruning: trim
+  Project expressions and TableScan assignments to what the query needs.
+  On this engine column pruning is the *scan pushdown* — the parquet reader
+  only materializes referenced columns (the moral of the Aria selective
+  reader's column skipping).
+- Cleanup: merge adjacent Filters, drop identity Projects.
+
+Join ordering happens at plan-build time (builder._assemble_joins) with
+connector row counts — the stand-in for the cost-based ReorderJoins.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set
+
+from presto_tpu_torch.expr.ir import (
+    Call,
+    InputRef,
+    RowExpression,
+    expr_inputs,
+    substitute_refs,
+)
+from presto_tpu_torch.plan.nodes import (
+    Aggregate,
+    Filter,
+    HashJoin,
+    Limit,
+    Output,
+    PlanNode,
+    Project,
+    QueryPlan,
+    SemiJoin,
+    Sort,
+    TableScan,
+    Unnest,
+    Window,
+)
+from presto_tpu_torch.types import BOOLEAN
+
+
+def _conjuncts(e: RowExpression) -> List[RowExpression]:
+    if isinstance(e, Call) and e.fn == "and":
+        out = []
+        for a in e.args:
+            out.extend(_conjuncts(a))
+        return out
+    return [e]
+
+
+def _combine(es: List[RowExpression]) -> Optional[RowExpression]:
+    if not es:
+        return None
+    out = es[0]
+    for e in es[1:]:
+        out = Call(BOOLEAN, "and", (out, e))
+    return out
+
+
+def push_filters(node: PlanNode) -> PlanNode:
+    """Recursively push filter conjuncts toward the leaves."""
+    if isinstance(node, Filter):
+        child = push_filters(node.child)
+        conjs = _conjuncts(node.predicate)
+        return _push_into(child, conjs)
+    for attr in ("child", "left", "right"):
+        if hasattr(node, attr):
+            setattr(node, attr, push_filters(getattr(node, attr)))
+    return node
+
+
+def _push_into(node: PlanNode, conjs: List[RowExpression]) -> PlanNode:
+    if not conjs:
+        return node
+    if isinstance(node, Filter):
+        return _push_into(node.child, conjs + _conjuncts(node.predicate))
+    if isinstance(node, Project):
+        mapping = {s: e for s, e in node.exprs}
+        pushable, kept = [], []
+        for c in conjs:
+            # only substitute through cheap expressions (refs / arithmetic);
+            # always safe since Project is stateless and deterministic
+            pushable.append(substitute_refs(c, mapping))
+        node.child = _push_into(node.child, pushable)
+        return node
+    if isinstance(node, HashJoin):
+        lsyms = {n for n, _ in node.left.output}
+        rsyms = {n for n, _ in node.right.output}
+        lpush, rpush, kept = [], [], []
+        for c in conjs:
+            ins = expr_inputs(c)
+            if ins <= lsyms and node.kind != "full":
+                # probe-side push is fine for INNER and LEFT (probe rows
+                # keep their own values); NOT for FULL — the build
+                # remainder's NULL probe columns must be filtered
+                # post-join, and pre-join evaluation can't see them
+                lpush.append(c)
+            elif ins <= rsyms and node.kind == "inner":
+                rpush.append(c)
+            else:
+                # NOTE: a WHERE conjunct on build-side columns above a LEFT
+                # join must NOT be pushed below it — it filters the
+                # NULL-extended post-join rows (pushing it would resurrect
+                # non-matching probe rows). ON-clause residuals are pushed at
+                # plan-build time instead (builder.plan_join).
+                kept.append(c)
+        if lpush:
+            node.left = _push_into(node.left, lpush)
+        if rpush:
+            node.right = _push_into(node.right, rpush)
+        node.left = push_filters(node.left)
+        node.right = push_filters(node.right)
+        if kept:
+            if node.kind == "inner":
+                return Filter(node, _combine(kept))
+            return Filter(node, _combine(kept))
+        return node
+    if isinstance(node, SemiJoin):
+        lsyms = {n for n, _ in node.left.output}
+        lpush, kept = [], []
+        for c in conjs:
+            (lpush if expr_inputs(c) <= lsyms else kept).append(c)
+        if lpush:
+            node.left = _push_into(node.left, lpush)
+        node.left = push_filters(node.left)
+        node.right = push_filters(node.right)
+        return Filter(node, _combine(kept)) if kept else node
+    from presto_tpu_torch.plan.nodes import NestedLoopJoin as _NLJ
+
+    if isinstance(node, _NLJ):
+        # inner semantics: single-side conjuncts push through freely
+        lsyms = {n for n, _ in node.left.output}
+        rsyms = {n for n, _ in node.right.output}
+        lpush, rpush, kept = [], [], []
+        for c in conjs:
+            ins = expr_inputs(c)
+            if ins <= lsyms:
+                lpush.append(c)
+            elif ins <= rsyms:
+                rpush.append(c)
+            else:
+                kept.append(c)
+        if lpush:
+            node.left = _push_into(node.left, lpush)
+        if rpush:
+            node.right = _push_into(node.right, rpush)
+        node.left = push_filters(node.left)
+        node.right = push_filters(node.right)
+        return Filter(node, _combine(kept)) if kept else node
+    if isinstance(node, Aggregate):
+        keys = set(node.group_keys)
+        below, above = [], []
+        for c in conjs:
+            (below if expr_inputs(c) <= keys else above).append(c)
+        if below:
+            node.child = _push_into(node.child, below)
+        node.child = push_filters(node.child)
+        return Filter(node, _combine(above)) if above else node
+    if isinstance(node, (Sort, Limit)):
+        # filters commute with sort/limit only if limit absent
+        if isinstance(node, Sort) and node.limit is None:
+            node.child = _push_into(node.child, conjs)
+            return node
+        node.child = push_filters(node.child)
+        return Filter(node, _combine(conjs))
+    # TableScan and everything else: stop here
+    if isinstance(node, TableScan):
+        _derive_scan_constraints(node, conjs)
+    node2 = push_filters(node) if node.children() else node
+    return Filter(node2, _combine(conjs))
+
+
+def _derive_scan_constraints(scan: TableScan, conjs: List[RowExpression]):
+    """Extract per-column (lo, hi) bounds from simple comparison conjuncts
+    for connector split pruning (coarse TupleDomain pushdown — the IO-level
+    slice of the reference's selective-reader filter pushdown). The exact
+    filter still runs on-device; this only skips row groups."""
+    from presto_tpu_torch.expr.ir import Constant
+
+    sym_to_col = {s: c for s, c in scan.assignments.items()}
+    for c in conjs:
+        if not (isinstance(c, Call) and c.fn in ("lt", "le", "gt", "ge", "eq")):
+            continue
+        a, b = c.args
+        if isinstance(a, InputRef) and isinstance(b, Constant) and b.value is not None:
+            ref, const, op = a, b, c.fn
+        elif isinstance(b, InputRef) and isinstance(a, Constant) and a.value is not None:
+            flip = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq"}
+            ref, const, op = b, a, flip[c.fn]
+        else:
+            continue
+        if ref.name not in sym_to_col:
+            continue
+        if const.type.is_string and not isinstance(const.value, str):
+            # string bounds feed dictionary-code filters downstream; only
+            # plain python-str constants have a well-defined order there
+            continue
+        col = sym_to_col[ref.name]
+        lo, hi = scan.constraints.get(col, (None, None))
+        v = const.value
+        t = const.type
+        from presto_tpu_torch.types import DecimalType as _Dec
+
+        if isinstance(t, _Dec) and not const.raw:
+            v = int(round(float(v) * 10 ** t.scale))
+        if op in ("gt", "ge"):
+            lo = v if lo is None else max(lo, v)
+        elif op in ("lt", "le"):
+            hi = v if hi is None else min(hi, v)
+        else:  # eq
+            lo = v if lo is None else max(lo, v)
+            hi = v if hi is None else min(hi, v)
+        scan.constraints[col] = (lo, hi)
+
+
+# ---------------------------------------------------------------------------
+# column pruning
+
+
+def prune_columns(node: PlanNode, required: Set[str]) -> PlanNode:
+    if isinstance(node, Output):
+        node.child = prune_columns(node.child, set(node.symbols))
+        return node
+    if isinstance(node, TableScan):
+        node.assignments = {s: c for s, c in node.assignments.items() if s in required}
+        node.output = [(s, t) for s, t in node.output if s in required]
+        return node
+    if isinstance(node, Filter):
+        need = required | expr_inputs(node.predicate)
+        node.child = prune_columns(node.child, need)
+        return node
+    if isinstance(node, Project):
+        node.exprs = [(s, e) for s, e in node.exprs if s in required]
+        need = set()
+        for _, e in node.exprs:
+            need |= expr_inputs(e)
+        node.child = prune_columns(node.child, need)
+        return node
+    if isinstance(node, Aggregate):
+        node.aggs = [a for a in node.aggs if a.symbol in required]
+        need = set(node.group_keys) | {a.arg for a in node.aggs if a.arg}
+        need |= {a.arg2 for a in node.aggs if a.arg2}
+        node.child = prune_columns(node.child, need)
+        return node
+    if isinstance(node, HashJoin):
+        need = required | set(node.left_keys) | set(node.right_keys)
+        if node.residual is not None:
+            need |= expr_inputs(node.residual)
+        lsyms = {n for n, _ in node.left.output}
+        rsyms = {n for n, _ in node.right.output}
+        node.left = prune_columns(node.left, need & lsyms)
+        node.right = prune_columns(node.right, need & rsyms)
+        return node
+    if isinstance(node, SemiJoin):
+        res_syms = expr_inputs(node.residual) if node.residual is not None else set()
+        rsyms = {n for n, _ in node.right.output}
+        node.left = prune_columns(
+            node.left, required | set(node.left_keys) | (res_syms - rsyms)
+        )
+        node.right = prune_columns(
+            node.right, set(node.right_keys) | (res_syms & rsyms)
+        )
+        return node
+    if isinstance(node, Window):
+        need = set(required) - {f.symbol for f in node.funcs}
+        need |= set(node.partition_keys)
+        need |= {k.symbol for k in node.order_items}
+        need |= {f.arg for f in node.funcs if f.arg}
+        node.child = prune_columns(node.child, need)
+        return node
+    if isinstance(node, Sort):
+        need = required | {k.symbol for k in node.keys}
+        node.child = prune_columns(node.child, need)
+        return node
+    if isinstance(node, Limit):
+        node.child = prune_columns(node.child, required)
+        return node
+    from presto_tpu_torch.plan.nodes import HostProject as _HP
+
+    if isinstance(node, _HP):
+        # host outputs resolve to their device inputs below this node
+        need = (required - {s for s, _, _, _ in node.items}) | {
+            in_s for _, _, in_s, _ in node.items}
+        node.child = prune_columns(node.child, need)
+        return node
+    if isinstance(node, Unnest):
+        node.replicate = [s for s in node.replicate if s in required]
+        node.child = prune_columns(
+            node.child, set(node.replicate) | set(node.sources))
+        return node
+    from presto_tpu_torch.plan.nodes import NestedLoopJoin as _NLJ
+
+    if isinstance(node, _NLJ):
+        need = set(required)
+        if node.residual is not None:
+            need |= expr_inputs(node.residual)
+        lsyms = {n for n, _ in node.left.output}
+        rsyms = {n for n, _ in node.right.output}
+        node.left = prune_columns(node.left, need & lsyms)
+        node.right = prune_columns(node.right, need & rsyms)
+        return node
+    for c in node.children():
+        prune_columns(c, required)
+    return node
+
+
+def cleanup(node: PlanNode) -> PlanNode:
+    """Merge adjacent filters; drop empty/identity projects."""
+    for attr in ("child", "left", "right"):
+        if hasattr(node, attr):
+            setattr(node, attr, cleanup(getattr(node, attr)))
+    if isinstance(node, Filter) and isinstance(node.child, Filter):
+        inner = node.child
+        return cleanup(Filter(inner.child, _combine(_conjuncts(node.predicate) + _conjuncts(inner.predicate))))
+    if isinstance(node, Project):
+        child_names = [n for n, _ in node.child.output]
+        if (
+            len(node.exprs) == len(child_names)
+            and all(
+                isinstance(e, InputRef) and e.name == s and s == cn
+                for (s, e), cn in zip(node.exprs, child_names)
+            )
+        ):
+            return node.child
+    return node
+
+
+def make_index_joins(node: PlanNode, catalog) -> PlanNode:
+    """Rewrite HashJoins whose build side is a bare scan of a table whose
+    connector exposes a ConnectorIndex over exactly the join keys
+    (reference: IndexJoinOptimizer.java — the source side collapses into
+    an IndexSourceNode driven by probe keys)."""
+    from presto_tpu_torch.plan.nodes import IndexJoin
+
+    for attr in ("child", "left", "right"):
+        if hasattr(node, attr):
+            setattr(node, attr, make_index_joins(getattr(node, attr), catalog))
+    if (isinstance(node, HashJoin) and node.kind in ("inner", "left")
+            and node.residual is None and not node.colocated
+            and isinstance(node.right, TableScan)):
+        scan = node.right
+        try:
+            conn = catalog.connectors[scan.catalog]
+            handle = conn.get_table(scan.table)
+        except Exception:
+            return node
+        key_cols = [scan.assignments.get(k) for k in node.right_keys]
+        if None in key_cols:
+            return node
+        if conn.get_index(handle, key_cols) is None:
+            return node
+        from presto_tpu_torch.plan.builder import _derives_unique
+
+        return IndexJoin(
+            kind=node.kind, left=node.left,
+            catalog=scan.catalog, table=scan.table,
+            left_keys=list(node.left_keys), index_key_cols=key_cols,
+            assignments=dict(scan.assignments),
+            index_output=list(scan.output),
+            build_unique=_derives_unique(scan, node.right_keys),
+        )
+    return node
+
+
+def optimize(plan: QueryPlan, catalog=None) -> QueryPlan:
+    """Run the pass pipeline (reference: PlanOptimizers.java:146 ordering)."""
+    from presto_tpu_torch.plan.stats import invalidate
+
+    from presto_tpu_torch.plan.rules import IterativeOptimizer
+
+    root = plan.root
+    root.child = push_filters(root.child)
+    prune_columns(root, set(root.symbols))
+    root.child = cleanup(root.child)
+    # iterative pattern rules (merge filters/projects/limits, TopN
+    # formation) run after the big passes, to fixpoint
+    root.child = IterativeOptimizer().optimize(root.child)
+    if catalog is not None:
+        root.child = make_index_joins(root.child, catalog)
+    # builder-time stats memos are stale once filters/pruning rewrote the
+    # tree; later consumers (fragmenter, capacity planner) re-derive
+    invalidate(root)
+    for sub in plan.scalar_subqueries.values():
+        optimize(sub, catalog)
+    return plan

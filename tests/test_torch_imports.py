@@ -1,0 +1,35 @@
+"""Static guard: no module of the port, and not chip_smoke.py, imports jax
+or the JAX package (presto_tpu). One case per file."""
+
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "presto_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(os.path.relpath(f, REPO) for f in files)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "presto_tpu")
+
+
+@pytest.mark.parametrize("path", _port_files())
+def test_port_module_imports_no_jax(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"

@@ -1,0 +1,195 @@
+"""The port end to end against the JAX package on TPC-H at SF 0.01.
+
+- The port's generated tables equal the JAX package's, array for array.
+- Q1, Q6 and Q3 under breaker_engine auto and hash give the same result
+  frame, in the same row order (all three fix it with ORDER BY). Tolerance:
+  none — the queries compute on decimals, integers, dates and dictionary
+  codes; Q1's averages divide in float64 in the same order on both sides.
+- The port imports neither jax nor presto_tpu, and runs on CUDA unless
+  asked for the CPU.
+"""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from presto_tpu.catalog.tpch import tpch_catalog as ref_tpch_catalog
+from presto_tpu.exec import ExecConfig as RefConfig
+from presto_tpu.exec import LocalRunner as RefRunner
+from presto_tpu_torch import convert
+from presto_tpu_torch.catalog.tpch import tpch_catalog
+from presto_tpu_torch.exec import ExecConfig, LocalRunner
+
+SF = 0.01
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+Q1 = """
+    select l_returnflag, l_linestatus,
+           sum(l_quantity) as sum_qty,
+           sum(l_extendedprice) as sum_base_price,
+           sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+           sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+           avg(l_quantity) as avg_qty,
+           avg(l_extendedprice) as avg_price,
+           avg(l_discount) as avg_disc,
+           count(*) as count_order
+    from lineitem
+    where l_shipdate <= date '1998-12-01' - interval '90' day
+    group by l_returnflag, l_linestatus
+    order by l_returnflag, l_linestatus
+"""
+Q6 = """
+    select sum(l_extendedprice * l_discount) as revenue
+    from lineitem
+    where l_shipdate >= date '1994-01-01' and l_shipdate < date '1995-01-01'
+      and l_discount between 0.05 and 0.07 and l_quantity < 24
+"""
+Q3 = """
+    select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+           o_orderdate, o_shippriority
+    from customer, orders, lineitem
+    where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+      and l_orderkey = o_orderkey
+      and o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
+    group by l_orderkey, o_orderdate, o_shippriority
+    order by revenue desc, o_orderdate
+    limit 10
+"""
+QUERIES = {"q1": Q1, "q6": Q6, "q3": Q3}
+TABLES = ["region", "nation", "supplier", "customer", "part", "partsupp",
+          "orders", "lineitem"]
+
+
+@pytest.fixture(scope="module")
+def catalogs():
+    return ref_tpch_catalog(SF), tpch_catalog(SF)
+
+
+def test_tables_identical(catalogs):
+    ref, port = catalogs
+    rc, pc = ref.connectors["tpch"], port.connectors["tpch"]
+    for name in TABLES:
+        rh, ph = rc.get_table(name), pc.get_table(name)
+        assert rh.row_count == ph.row_count and rh.primary_key == ph.primary_key
+        rt, pt = rc.tables[name], pc.tables[name]
+        assert list(rt.arrays) == list(pt.arrays)
+        for col, arr in rt.arrays.items():
+            assert str(rt.types[col]) == str(pt.types[col])
+            assert arr.dtype == pt.arrays[col].dtype
+            assert arr.tobytes() == pt.arrays[col].tobytes(), (name, col)
+            assert (rt.validity[col] is None) == (pt.validity[col] is None)
+            if col in rt.dicts:
+                np.testing.assert_array_equal(pt.dicts[col].values,
+                                              rt.dicts[col].values)
+            assert (dataclasses.asdict(rt.column_stats(col))
+                    == dataclasses.asdict(pt.column_stats(col)))
+
+
+def test_q1_q6_q3_match_reference(catalogs):
+    """Both engines in one test: the JAX package's program cache then
+    compiles the programs the two share once."""
+    ref, port = catalogs
+    for engine in ("auto", "hash"):
+        # the port is the reference's per-batch path, which the reference
+        # keeps bit-identical to its fused default
+        # (tests/test_fragment_fusion.py)
+        rr = RefRunner(ref, RefConfig(breaker_engine=engine,
+                                      fragment_fusion=False))
+        pr = LocalRunner(port, ExecConfig(breaker_engine=engine),
+                         device="cpu")
+        for q, sql in QUERIES.items():
+            want, got = rr.run(sql), pr.run(sql)
+            assert list(got.columns) == list(want.columns), (engine, q)
+            assert len(got) == len(want) > 0, (engine, q)
+            for c in want.columns:
+                assert list(got[c]) == list(want[c]), (engine, q, c)
+
+
+def test_explain_marks_engines_like_reference(catalogs):
+    ref, port = catalogs
+    for engine in ("auto", "hash"):
+        rr = RefRunner(ref, RefConfig(breaker_engine=engine))
+        pr = LocalRunner(port, ExecConfig(breaker_engine=engine), device="cpu")
+        for sql in QUERIES.values():
+            # the port has no whole-fragment fusion, so no [fragment=] mark
+            want = [re.sub(r"\s+\[fragment=[^\]]*\]", "", ln)
+                    for ln in rr.explain(sql).splitlines()]
+            assert pr.explain(sql).splitlines() == want
+
+
+def test_connector_from_reference_tables(catalogs):
+    """Tables carried across as host arrays give the same answer."""
+    ref, _ = catalogs
+    rc = ref.connectors["tpch"]
+    rc.get_table("lineitem")
+    from presto_tpu_torch.connector import Catalog
+
+    cat = Catalog()
+    cat.register("m", convert.connector_from_tables(
+        {"lineitem": rc.tables["lineitem"]}), default=True)
+    got = LocalRunner(cat, device="cpu").run(Q6)
+    want = RefRunner(ref, RefConfig(fragment_fusion=False)).run(Q6)
+    assert list(got["revenue"]) == list(want["revenue"])
+
+
+def test_port_imports_no_jax_and_runs_q6_on_cpu():
+    code = (
+        "import sys\n"
+        "from presto_tpu_torch.catalog.tpch import tpch_catalog\n"
+        "from presto_tpu_torch.exec import LocalRunner\n"
+        f"df = LocalRunner(tpch_catalog({SF}), device='cpu').run({Q6!r})\n"
+        "assert len(df) == 1 and df['revenue'][0] is not None\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'presto_tpu' or m.startswith('presto_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_default_device_is_cuda():
+    cat = tpch_catalog(SF)
+    if torch.cuda.is_available():
+        assert LocalRunner(cat).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LocalRunner(cat)
+    assert LocalRunner(cat, device="cpu").device.type == "cpu"
+
+
+def test_unsupported_function_names_itself(catalogs):
+    _, port = catalogs
+    pr = LocalRunner(port, device="cpu")
+    with pytest.raises(NotImplementedError, match="sqrt"):
+        pr.run("select sqrt(n_nationkey) from nation")
+
+
+@pytest.mark.parametrize("sql, what", [
+    ("select n_name from nation where n_name like 'A%'", "function like"),
+    ("select coalesce(n_regionkey, 0) from nation", "function coalesce"),
+    ("select case when n_regionkey = 1 then 1 else 0 end from nation",
+     "function if"),
+    ("select n_name, r_name from nation left join region "
+     "on n_regionkey = r_regionkey", "left hash joins"),
+    ("select min(n_nationkey) from nation", "aggregate min"),
+    ("select count(n_comment) from nation", "aggregate count"),
+    ("select n_name from nation where n_regionkey = "
+     "(select max(r_regionkey) from region)", "scalar subqueries"),
+    ("select n_name from nation limit 3", "Limit"),
+], ids=["like", "coalesce", "case", "left_join", "min", "count_column",
+        "scalar_subquery", "limit"])
+def test_sql_outside_the_slice_raises(catalogs, sql, what):
+    """SQL that Q1, Q3 and Q6 do not use raises NotImplementedError naming
+    what is missing, rather than running untested code."""
+    _, port = catalogs
+    pr = LocalRunner(port, device="cpu")
+    with pytest.raises(NotImplementedError, match=what):
+        pr.run(sql)
