@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (presto_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--save-inputs FILE]
 
 1. Build: print the card's name and power limit, build the CUDA kernels
    from presto_tpu_torch/csrc (one nvcc per source, all at once).
@@ -15,12 +15,20 @@
    Launch counts are reset just before and read just after the SF 1 runs;
    every kernel must have launched.
 4. Timing phase: each kernel on the largest inputs its launcher saw in
-   the query phase — CUDA-event time of the launcher (the kernel and its
-   outputs' fill) and of the public wrapper, its plain version's time and
-   result, the bound (bytes moved over 3.35 TB/s) and, for grouped_sums,
-   one `index_add_` call.
+   the query phase, three CUDA-event times: the kernel alone (the bare
+   C launch on outputs allocated once, events around each launch after a
+   spin kernel), warm and — where its inputs and outputs fit under the
+   50 MB L2 — cold, with the L2 flushed before each launch by a 128 MB
+   write and a 128 MB read; the launcher (the kernel plus its outputs'
+   allocation and fill); the public wrapper. Beside them the plain
+   version's time and result, the bound (bytes of the distinct inputs
+   read once and outputs written once, over 3.35 TB/s), which the cold
+   time must not beat, and for grouped_sums one `index_add_` call.
+   `--save-inputs FILE` also writes those inputs (torch.save) for
+   kernel_ab.py.
 
-Prints a `kernels` JSON line, then as its last line
+Prints a `kernels` JSON line (`ms` is the cold kernel-alone time where
+one was taken), then as its last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
 no ok line). Exits non-zero at once without CUDA or without the package.
 """
@@ -35,6 +43,9 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+L2_BYTES = 50_000_000  # H100 L2; smaller kernels are also timed cold
+FLUSH_BYTES = 128 * 2**20  # one write of this much evicts the L2
+SPIN_CYCLES = 100_000  # spin kernel before a timed launch (~50 µs)
 SF = 1.0
 SMALL_SF = 0.01
 HASH_CHECK_ROWS = 65536  # serial plain versions bound the synthetic cases
@@ -127,9 +138,9 @@ def phase_build(torch):
 # phase 2: kernels against their plain versions
 
 
-def q1_state_count() -> int:
-    """Integer states Q1's aggregate sends through grouped_sums: one
-    occupancy column, each sum limb and its valid count, each count."""
+def q1_state_ops():
+    """(sums, counts) of Q1's aggregate state layout: each sum (limb) goes
+    to grouped_sums with its valid count, each count alone."""
     from presto_tpu_torch.catalog.tpch import tpch_catalog
     from presto_tpu_torch.plan.agg_states import agg_state_layout
     from presto_tpu_torch.plan.builder import plan_query
@@ -142,19 +153,80 @@ def q1_state_count() -> int:
     while not isinstance(node, Aggregate):
         node = node.children()[0]
     layout = agg_state_layout(node.aggs, dict(node.child.output))
-    return 1 + sum(1 if op == "count_add" else 2 for _, op, _ in layout)
+    counts = sum(op == "count_add" for _, op, _ in layout)
+    return len(layout) - counts, counts
 
 
-def check_grouped_sums(torch, gid, vals, n_groups):
+def check_grouped_sums(torch, gid, states, n_groups):
     from presto_tpu_torch.ops import groupby_kernels as gk
 
-    got = torch.stack(gk.grouped_sums(gid, list(vals), n_groups))
-    want = gk.grouped_sums_plain(gid, vals, n_groups)
+    got = torch.stack(gk.grouped_sums(gid, list(states), n_groups))
+    want = gk.grouped_sums_plain(gid, states, n_groups)
     torch.cuda.synchronize()
     err = int((got - want).abs().max()) if got.numel() else 0
     require(torch.equal(got, want),
             f"grouped_sums differs from its plain version (G={n_groups})")
     return err
+
+
+# (dtype, low, high) of each element kind grouped_sums takes
+STATE_KINDS = (("bool", 0, 1), ("uint8", 0, 255), ("int8", -128, 127),
+               ("int16", -2**15, 2**15 - 1), ("int32", -2**31, 2**31 - 1),
+               ("int64", -2**63, 2**63 - 1))
+
+
+def synthetic_states(torch, rng, n, layout, dev, offset=0):
+    """States for grouped_sums: `layout` lists (dtype name, masked) per
+    state, or ("mask", j) for the mask of state j itself (as the aggregate
+    passes each sum's validity as its count). `offset` > 0 makes every
+    tensor a view that starts `offset` elements into its storage."""
+    import numpy as np
+
+    bounds = {name: (lo, hi) for name, lo, hi in STATE_KINDS}
+    out = []
+    for kind, arg in layout:
+        if kind == "mask":
+            out.append(out[arg][1])
+            continue
+        lo, hi = bounds[kind]
+        v = rng.integers(lo, hi, n + offset, dtype=np.int64, endpoint=True)
+        t = torch.from_numpy(v).to(dev).to(getattr(torch, kind))[offset:]
+        if arg:
+            m = torch.from_numpy(rng.random(n + offset) < 0.7).to(dev)
+            out.append((t, m[offset:]))
+        else:
+            out.append(t)
+    return out
+
+
+def q1_state_layout():
+    """The states Q1's aggregate hands grouped_sums in a merge: the live
+    flags, each sum masked by its validity, each sum's validity as its
+    count, and the counts (int64)."""
+    sums, counts = q1_state_ops()
+    return ([("bool", False)] + [("int64", True)] * sums
+            + [("mask", 1 + j) for j in range(sums)]
+            + [("int64", False)] * counts)
+
+
+def grouped_sums_cases():
+    """(label, rows, groups, layout, every row dead, view offset)."""
+    q1 = q1_state_layout()
+    kinds = [(name, j % 2 == 1) for j, (name, _, _) in
+             enumerate(STATE_KINDS + STATE_KINDS)]
+    many = [(STATE_KINDS[j % 6][0], j % 3 == 0) for j in range(70)]
+    ragged = (1 << 17) + 77  # not a multiple of any row tile or vector
+    return [("Q1 layout", ragged, 6, q1, False, 0),
+            ("Q1 layout", ragged, 512, q1, False, 0),
+            ("every width, masked and not", 65536 + 5, 6, kinds, False, 0),
+            ("every width, masked and not", 65536 + 5, 40, kinds, False, 0),
+            ("70 states (two launches)", 40000 + 3, 6, many, False, 0),
+            ("70 states (two launches)", 40000 + 3, 512, many, False, 0),
+            ("unaligned views", 50000, 16, kinds, False, 1),
+            ("unaligned views", 50000, 100, kinds, False, 1),
+            ("every row dead", 30000, 6, kinds, True, 0),
+            ("every row dead", 30000, 512, kinds, True, 0),
+            ("few rows", 100, 3, kinds, False, 0)]
 
 
 def _slot_keys(table, gid, tcap):
@@ -260,6 +332,9 @@ def check_join_probe(torch, slot0, pkeys, plive, slot_row, bkeys, fanout,
     err = max(err, abs(int(ovf) - int(povf)))
     require(torch.equal(cnt_h, pcnt), "join_probe counts differ")
     require(int(ovf) == int(povf), "join_probe overflow differs")
+    past = (torch.arange(fanout)[None, :]
+            >= torch.clamp(cnt_h, max=fanout)[:, None])
+    require(bool((mm_h[past] == -1).all()), "join_probe: padding is not -1")
     full = cnt_h <= fanout
     require(torch.equal(mm_h[full].sort(dim=1).values,
                         pmm[full].sort(dim=1).values),
@@ -292,16 +367,16 @@ def phase_kernels(torch):
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261017)
-    s = q1_state_count()
-    n = 1 << 17
     gs_err = 0
-    for g in (128, 512):
-        gid = torch.from_numpy(rng.integers(0, g + 1, n).astype(np.int32)).to(dev)
-        vals = torch.from_numpy(
-            rng.integers(-2**63, 2**63 - 1, (s, n), dtype=np.int64,
-                         endpoint=True)).to(dev)
-        gs_err = max(gs_err, check_grouped_sums(torch, gid, vals, g))
-        print(f"kernel grouped_sums: n={n} G={g} S={s} equal to plain (exact)")
+    for label, n, g, layout, dead, offset in grouped_sums_cases():
+        gid = torch.from_numpy(
+            np.full(n + offset, g, np.int32) if dead
+            else rng.integers(-1, g + 2, n + offset).astype(np.int32)
+        ).to(dev)[offset:]
+        states = synthetic_states(torch, rng, n, layout, dev, offset)
+        gs_err = max(gs_err, check_grouped_sums(torch, gid, states, g))
+        print(f"kernel grouped_sums [{label}]: n={n} G={g} S={len(states)} "
+              f"equal to plain (exact)")
 
     m = HASH_CHECK_ROWS
     gi_err = 0
@@ -320,8 +395,8 @@ def phase_kernels(torch):
 
     ji_err = jp_err = 0
     # (build rows, distinct build keys, fanouts, all rows on one slot)
-    for bn, dup, fanouts, collide in ((m, 20000, (8, 1), False),
-                                      (2048, 300, (8,), True)):
+    for bn, dup, fanouts, collide in ((m, 20000, (8, 1, 16), False),
+                                      (2048, 300, (8, 16), True)):
         bkeys = synthetic_planes(torch, rng, bn, 1, dup, dev)
         blive = torch.from_numpy(rng.random(bn) < 0.9).to(dev)
         tcap = 2 * bn
@@ -344,7 +419,8 @@ def phase_kernels(torch):
                                                   sr, bkeys, f, psr))
             print(f"kernel join_probe: n={bn} F={f} build={bn}"
                   f"{' one-slot collisions' if collide else ''}: counts, "
-                  f"overflow and match sets equal to plain (exact)")
+                  f"overflow, match sets and -1 padding equal to plain "
+                  f"(exact)")
     torch.cuda.synchronize()
     return {"grouped_sums": gs_err, "group_insert": gi_err,
             "join_insert": ji_err, "join_probe": jp_err}
@@ -455,6 +531,27 @@ def frames_equal_q3(got, want, label) -> None:
                  want.sort_values(key, ignore_index=True), label)
 
 
+def _tensors(obj):
+    """Every tensor in a launcher's arguments (lists and tuples opened)."""
+    if hasattr(obj, "numel"):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for x in obj:
+            yield from _tensors(x)
+
+
+def _clone(obj, memo):
+    """Deep copy of a launcher's arguments: a tensor passed twice (a mask
+    that is also a count state) stays one tensor."""
+    if hasattr(obj, "clone"):
+        if id(obj) not in memo:
+            memo[id(obj)] = obj.clone()
+        return memo[id(obj)]
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone(x, memo) for x in obj)
+    return obj
+
+
 class Recorder:
     """Keeps the largest inputs each kernel launcher saw (for the timing
     phase), by wrapping the modules' private CUDA launchers; the launch
@@ -478,10 +575,9 @@ class Recorder:
 
     def _wrap(self, fn, name):
         def rec(*args):
-            size = max(a.numel() for a in args if hasattr(a, "numel"))
+            size = max(t.numel() for t in _tensors(args))
             if size > self.inputs.get(name, (0, None))[0]:
-                self.inputs[name] = (size, tuple(
-                    a.clone() if hasattr(a, "clone") else a for a in args))
+                self.inputs[name] = (size, _clone(args, {}))
             return fn(*args)
         return rec
 
@@ -589,87 +685,280 @@ def host_ms(torch, fn, reps=1):
     return best
 
 
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
+def distinct_bytes(*ts):
+    """Bytes of the distinct tensors among ts (a tensor passed twice is
+    read once)."""
+    seen = {}
+    for t in ts:
+        seen[(t.data_ptr(), t.numel(), t.element_size())] = \
+            t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def kernel_alone_ms(torch, launch, prep=None, flush=None, reps=50):
+    """Median CUDA-event time of one bare launch, events around each
+    launch. Before each: `prep` (resetting outputs the kernel updates),
+    `flush` (evicting the L2: the cold reading; without it the inputs stay
+    where the previous launch left them) and a spin kernel that keeps the
+    card busy while the host enqueues, so no host time falls between the
+    events. (Events around back-to-back launches would time the host:
+    one Python-side launch takes longer than these kernels.)"""
+    for _ in range(3):
+        if prep:
+            prep()
+        launch()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        if prep:
+            prep()
+        if flush:
+            flush()
+        torch.cuda._sleep(SPIN_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        launch()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def _rc(err, what):
+    require(err == 0, f"bare launch of {what} failed: cudaError {err}")
+
+
+def _bare_grouped_sums(torch, lib, sp, gid, states, g):
+    import ctypes
+
+    from presto_tpu_torch.ops import groupby_kernels as gk
+
+    n = gid.shape[0]
+    tables, parts = gk.state_tables(gid, states, g)
+    out = torch.zeros(len(states), g, dtype=torch.int64, device=gid.device)
+
+    # each call keeps its descriptor array alive beside the arguments
+    calls = [(arr, (gid.data_ptr(), ctypes.addressof(arr), len(plan.states),
+                    out.data_ptr(), 0, n, g, plan.groups_tile,
+                    plan.states_tile, sp))
+             for plan, arr in tables]
+
+    def launch():
+        for _arr, args in calls:
+            _rc(lib.grouped_sums_launch(*args), "grouped_sums")
+    return (launch, None, distinct_bytes(gid, *_tensors(parts))
+            + out.numel() * 8, f"n={n} S={len(states)} G={g}")
+
+
+def _bare_group_insert(torch, lib, sp, planes, slot0, live, cap):
+    k, n = planes.shape
+    tcap = 2 * cap
+    dev = planes.device
+    gid = torch.empty(n, dtype=torch.int32, device=dev)
+    table = torch.zeros(k, tcap, dtype=torch.int64, device=dev)
+    occ = torch.zeros(tcap, dtype=torch.int32, device=dev)
+    state = torch.zeros(tcap, dtype=torch.int32, device=dev)
+    stat = torch.zeros(3, dtype=torch.int32, device=dev)
+
+    def prep():
+        for t in (table, occ, state, stat):
+            t.zero_()
+
+    args = (slot0.data_ptr(), planes.data_ptr(), live.data_ptr(),
+            gid.data_ptr(), table.data_ptr(), occ.data_ptr(),
+            state.data_ptr(), stat.data_ptr(), n, k, cap, sp)
+
+    def launch():
+        _rc(lib.group_insert_launch(*args), "group_insert")
+    return (launch, prep, distinct_bytes(planes, slot0, live) + n * 4
+            + k * tcap * 8 + tcap * 4 + 8, f"n={n} K={k} cap={cap}")
+
+
+def _bare_join_insert(torch, lib, sp, slot0, live, tcap):
+    n = slot0.shape[0]
+    slot_row = torch.full((tcap,), -1, dtype=torch.int32, device=slot0.device)
+
+    args = (slot0.data_ptr(), live.data_ptr(), slot_row.data_ptr(), n, tcap,
+            sp)
+
+    def launch():
+        _rc(lib.join_insert_launch(*args), "join_insert")
+    return (launch, lambda: slot_row.fill_(-1),
+            distinct_bytes(slot0, live) + tcap * 4, f"n={n} tcap={tcap}")
+
+
+def _bare_join_probe(torch, lib, sp, slot0, pkeys, plive, slot_row, bkeys, f):
+    k, n = pkeys.shape
+    dev = slot0.device
+    mm = torch.empty((n, f), dtype=torch.int32, device=dev)
+    cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    stat = torch.empty(1, dtype=torch.int32, device=dev)
+
+    args = (slot0.data_ptr(), pkeys.data_ptr(), plive.data_ptr(),
+            slot_row.data_ptr(), bkeys.data_ptr(), mm.data_ptr(),
+            cnt.data_ptr(), stat.data_ptr(), n, k, bkeys.shape[1],
+            slot_row.shape[0], f, sp)
+
+    def launch():
+        _rc(lib.join_probe_launch(*args), "join_probe")
+    return (launch, None, distinct_bytes(slot0, pkeys, plive, slot_row, bkeys)
+            + n * f * 4 + n * 4 + 4,
+            f"n={n} K={k} F={f} build={bkeys.shape[1]} "
+            f"tcap={slot_row.shape[0]}")
+
+
+def bare_launches(torch, inputs, libs=None):
+    """name → (launch, prep, bytes, shape): the bare `lib.*_launch` call of
+    each kernel on the largest inputs the query phase handed its launcher,
+    with outputs allocated once; `prep` resets the outputs a kernel must
+    find empty; bytes are the distinct inputs read once plus the outputs
+    written once. `libs` may name other builds of the sources."""
+    from presto_tpu_torch.kernels._build import library, stream_ptr
+
+    libs = libs or {}
+    gsl = libs.get("grouped_sums") or library("grouped_sums")
+    htl = libs.get("hash_table") or library("hash_table")
+    sp = stream_ptr(torch.device("cuda"))
+    return {
+        "grouped_sums": _bare_grouped_sums(torch, gsl, sp,
+                                           *inputs["grouped_sums"][1]),
+        "group_insert": _bare_group_insert(torch, htl, sp,
+                                           *inputs["group_insert"][1]),
+        "join_insert": _bare_join_insert(torch, htl, sp,
+                                         *inputs["join_insert"][1]),
+        "join_probe": _bare_join_probe(torch, htl, sp,
+                                       *inputs["join_probe"][1]),
+    }
+
+
+def l2_flush(torch):
+    """(flush, its own CUDA-event time in ms): one write of a scratch
+    tensor larger than the L2, then a read of another, so that the L2 is
+    left holding clean lines (after the write alone, the timed kernel would
+    pay for writing the flush's dirty lines back)."""
+    dev = torch.device("cuda")
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    clean = torch.zeros(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    total = torch.empty((), dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.fill_(1.0)
+        torch.sum(clean, dim=0, out=total)
+    return flush, cuda_ms(torch, flush, iters=20)
 
 
 def phase_timing(torch, inputs, errs):
-    """Each kernel timed through its launcher (the module's private
-    `_*_cuda` function) on the inputs the query phase handed that launcher:
-    the kernel plus the allocation and fill of its outputs. The public
-    wrapper's time is printed beside it; the difference is the wrapper's
-    input conversions (for grouped_sums, the stack of the S states)."""
+    """Each kernel on the inputs the query phase handed its launcher:
+    - kernel alone: the bare `lib.*_launch` on outputs allocated once
+      (`bare_launches`), warm (inputs as the last launch left them in L2)
+      and, for kernels whose inputs and outputs fit under the L2, cold (the
+      L2 flushed before each launch); the cold time is the one held
+      against the byte bound;
+    - launcher: the module's private `_*_cuda` (the kernel plus the
+      allocation and fill of its outputs);
+    - wrapper: the public function (plus its input conversions);
+    - plain: the plain version on the same inputs; for grouped_sums also
+      one `index_add_` call on the states stacked as int64."""
     from presto_tpu_torch.ops import groupby_kernels as gk
     from presto_tpu_torch.ops import hash_kernels as hk
 
+    flush, flush_ms = l2_flush(torch)
+    print(f"timing: L2 flush (write of {FLUSH_BYTES} B, read of as many) "
+          f"{flush_ms:.4f} ms, outside the events of the cold launches")
+    bare = bare_launches(torch, inputs)
     rows = {}
-    # grouped_sums: (gid, vals[S, n], G)
-    gid, vals, g = inputs["grouped_sums"][1]
-    s, n = vals.shape
-    ms = cuda_ms(torch, lambda: gk._grouped_sums_cuda(gid, vals, g))
-    wrapper = cuda_ms(torch, lambda: gk.grouped_sums(gid, list(vals), g))
-    plain = cuda_ms(torch, lambda: gk.grouped_sums_plain(gid, vals, g))
-    idx = torch.where(gid < g, gid.long(), g)
-    lib = cuda_ms(torch, lambda: torch.zeros(s, g + 1, dtype=torch.int64,
-                                             device=vals.device)
-                  .index_add_(1, idx, vals))
-    errs["grouped_sums"] = max(errs["grouped_sums"],
-                               check_grouped_sums(torch, gid, vals, g))
-    rows["grouped_sums"] = (ms, wrapper, plain, nbytes(gid, vals) + s * g * 8,
-                            lib, f"n={n} S={s} G={g}")
+    for name, (launch, prep, b, shape) in bare.items():
+        warm = kernel_alone_ms(torch, launch, prep)
+        cold = (kernel_alone_ms(torch, launch, prep, flush)
+                if b < L2_BYTES else None)
+        rows[name] = {"ms_warm": warm, "ms_cold": cold, "bytes": b,
+                      "shape": shape}
 
-    # group_insert: (planes[K, n], slot0, live, cap)
+    gid, states, g = inputs["grouped_sums"][1]
+    r = rows["grouped_sums"]
+    r["launcher"] = cuda_ms(torch, lambda: gk._grouped_sums_cuda(gid, states,
+                                                                  g))
+    r["wrapper"] = cuda_ms(torch, lambda: gk.grouped_sums(gid, states, g))
+    r["plain"] = cuda_ms(torch, lambda: gk.grouped_sums_plain(gid, states, g))
+    # the library call's input: the states widened and stacked, untimed
+    vals = torch.stack([v.to(torch.int64) if m is None
+                        else torch.where(m, v.to(torch.int64), 0)
+                        for v, m in map(gk._split, states)])
+    idx = torch.where((gid >= 0) & (gid < g), gid.long(), g)
+    r["library"] = cuda_ms(torch, lambda: torch.zeros(
+        len(states), g + 1, dtype=torch.int64, device=gid.device)
+        .index_add_(1, idx, vals))
+    n = gid.shape[0]
+    r["pr1_bytes"] = n * (4 + 8 * len(states)) + len(states) * g * 8
+    errs["grouped_sums"] = max(errs["grouped_sums"],
+                               check_grouped_sums(torch, gid, states, g))
+
     planes, slot0, live, cap = inputs["group_insert"][1]
-    k, n = planes.shape
-    ms = cuda_ms(torch, lambda: hk._group_insert_cuda(planes, slot0, live,
-                                                      cap))
-    wrapper = cuda_ms(torch, lambda: hk.group_insert(planes, slot0, live, cap))
-    plain = host_ms(torch, lambda: hk.group_insert_plain(
+    r = rows["group_insert"]
+    r["launcher"] = cuda_ms(torch, lambda: hk._group_insert_cuda(
+        planes, slot0, live, cap))
+    r["wrapper"] = cuda_ms(torch, lambda: hk.group_insert(planes, slot0, live,
+                                                          cap))
+    r["plain"] = host_ms(torch, lambda: hk.group_insert_plain(
         planes.cpu(), slot0.cpu(), live.cpu(), cap))
+    r["library"] = None
     errs["group_insert"] = max(errs["group_insert"], check_group_insert(
         torch, planes, slot0, live, cap))
-    tcap = 2 * cap
-    rows["group_insert"] = (ms, wrapper, plain, nbytes(planes, slot0, live)
-                            + n * 4 + k * tcap * 8 + tcap * 4 + 8, None,
-                            f"n={n} K={k} cap={cap}")
 
-    # join_insert: (slot0, live, tcap)
     bslot, blive, tcap = inputs["join_insert"][1]
-    n = bslot.shape[0]
-    ms = cuda_ms(torch, lambda: hk._join_insert_cuda(bslot, blive, tcap))
-    wrapper = cuda_ms(torch, lambda: hk.join_insert(bslot, blive, tcap))
-    plain = host_ms(torch, lambda: hk.join_insert_plain(
+    r = rows["join_insert"]
+    r["launcher"] = cuda_ms(torch, lambda: hk._join_insert_cuda(bslot, blive,
+                                                                tcap))
+    r["wrapper"] = cuda_ms(torch, lambda: hk.join_insert(bslot, blive, tcap))
+    r["plain"] = host_ms(torch, lambda: hk.join_insert_plain(
         bslot.cpu(), blive.cpu(), tcap))
+    r["library"] = None
     errs["join_insert"] = max(errs["join_insert"], check_join_insert(
         torch, bslot, blive, tcap)[1])
-    rows["join_insert"] = (ms, wrapper, plain, nbytes(bslot, blive) + tcap * 4,
-                           None, f"n={n} tcap={tcap}")
 
-    # join_probe: (slot0, pkeys, plive, slot_row, bkeys, fanout)
     pslot, pkeys, plive, slot_row, bkeys, f = inputs["join_probe"][1]
-    k, n = pkeys.shape
-    ms = cuda_ms(torch, lambda: hk._join_probe_cuda(pslot, pkeys, plive,
-                                                    slot_row, bkeys, f))
-    wrapper = cuda_ms(torch, lambda: hk.join_probe(pslot, pkeys, plive,
-                                                   slot_row, bkeys, f))
-    plain = host_ms(torch, lambda: hk.join_probe_plain(
-        pslot.cpu(), pkeys.cpu(), plive.cpu(), slot_row.cpu(), bkeys.cpu(), f))
+    r = rows["join_probe"]
+    r["launcher"] = cuda_ms(torch, lambda: hk._join_probe_cuda(
+        pslot, pkeys, plive, slot_row, bkeys, f))
+    r["wrapper"] = cuda_ms(torch, lambda: hk.join_probe(
+        pslot, pkeys, plive, slot_row, bkeys, f))
+    r["plain"] = host_ms(torch, lambda: hk.join_probe_plain(
+        pslot.cpu(), pkeys.cpu(), plive.cpu(), slot_row.cpu(), bkeys.cpu(),
+        f))
+    r["library"] = None
     errs["join_probe"] = max(errs["join_probe"], check_join_probe(
         torch, pslot, pkeys, plive, slot_row, bkeys, f))
-    rows["join_probe"] = (ms, wrapper, plain,
-                          nbytes(pslot, pkeys, plive, slot_row, bkeys)
-                          + n * f * 4 + n * 4 + 4,
-                          None, f"n={n} K={k} F={f} build={bkeys.shape[1]} "
-                          f"tcap={slot_row.shape[0]}")
-    for name, (ms, wrapper, plain, b, lib, shape) in rows.items():
-        print(f"timing {name} [{shape}]: launcher {ms:.4f} ms on the card "
-              f"(wrapper {wrapper:.4f} ms), plain {plain:.4f} ms, bound "
-              f"{b / HBM_BYTES_PER_S * 1e3:.5f} ms ({b} bytes)"
-              + ("" if lib is None else f", index_add_ {lib:.4f} ms"))
+
+    for name, r in rows.items():
+        r["bound"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        cold = ("" if r["ms_cold"] is None
+                else f"cold {r['ms_cold']:.4f} ms, ")
+        print(f"timing {name} [{r['shape']}]: kernel alone {cold}warm "
+              f"{r['ms_warm']:.4f} ms; launcher {r['launcher']:.4f} ms; "
+              f"wrapper {r['wrapper']:.4f} ms; plain {r['plain']:.4f} ms; "
+              f"bound {r['bound']:.5f} ms ({r['bytes']} bytes)"
+              + ("" if r["library"] is None
+                 else f"; index_add_ {r['library']:.4f} ms")
+              + ("" if "pr1_bytes" not in r else
+                 f"; bound with the states stacked as int64 "
+                 f"{r['pr1_bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms "
+                 f"({r['pr1_bytes']} bytes)"))
+        if r["ms_cold"] is not None:
+            require(r["ms_cold"] >= r["bound"],
+                    f"{name}: cold kernel-alone time {r['ms_cold']:.5f} ms "
+                    f"beats its byte bound {r['bound']:.5f} ms: the L2 flush "
+                    f"did not take")
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--save-inputs", metavar="FILE",
+                    help="write each kernel's timed inputs here")
+    save_inputs = ap.parse_args(argv).save_inputs
     try:
         import torch
     except ImportError:
@@ -689,15 +978,20 @@ def main() -> int:
     phase_build(torch)
     errs = phase_kernels(torch)
     launches, inputs, _ = phase_queries(torch)
+    if save_inputs:
+        torch.save(inputs, save_inputs)
     rows = phase_timing(torch, inputs, errs)
     kernels = []
-    for name, (ms, _wrapper, plain, b, lib, _shape) in rows.items():
+    for name, r in rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-            "bound_ms": b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": lib})
+            "max_abs_err": errs[name],
+            "ms": r["ms_warm"] if r["ms_cold"] is None else r["ms_cold"],
+            "cold": r["ms_cold"] is not None, "ms_warm": r["ms_warm"],
+            "launcher_ms": r["launcher"], "wrapper_ms": r["wrapper"],
+            "plain_ms": r["plain"], "bound_ms": r["bound"],
+            "bound_by": "bytes", "library_ms": r["library"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

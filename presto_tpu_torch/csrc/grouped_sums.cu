@@ -1,76 +1,664 @@
-// Exact grouped int64 sums: out[s, g] = sum of vals[s, i] over rows i with
-// gid[i] == g, wrapping mod 2^64. Rows with gid outside [0, G) are dead.
+// Exact grouped int64 sums: out[o, g] = sum over rows i with gid[i] == g of
+// state o's value at i (zero where the state's mask is 0), wrapping mod
+// 2^64. Rows with gid outside [0, G) are dead.
 //
 // Replaces: presto_tpu/ops/pallas_groupby.py grouped_sums (kernel _kernel,
 // launched by _blocked_call). On the TPU the sums split into four 16-bit
 // limbs so that a one-hot f32 matmul on the MXU stays exact; the H100 adds
 // 64-bit integers natively, so the trick is not carried over.
 //
-// Bound on this card: bytes. The kernel reads n*(4 + 8*S) bytes and writes
-// 8*S*G; it does n*S additions, far below any compute ceiling.
+// Bound on this card: bytes. The kernel reads gid (4 B a row), each state
+// at its own width (1, 2, 4 or 8 B a row) and each mask (1 B a row) once,
+// and writes 8*S*G bytes; it does about n*S*G compare-adds, which at Q1's
+// G <= 8 stay under the time the bytes take.
 //
-// Design: a grid-stride loop over rows. Each block accumulates its rows'
-// partials for a tile of (state, group) pairs in shared memory with 64-bit
-// atomicAdd, then flushes the non-zero partials to the global [S, G] output
-// with atomicAdd. States are tiled along grid.y so a tile never needs more
-// than 48 KB of shared memory (G = 512 fits 12 states; G = 128 fits 48).
+// Design. States arrive by pointer, at their own width, in a descriptor
+// table passed by value as a kernel parameter (up to kMaxStates a launch):
+// the caller neither stacks nor widens them.
+// - Small G (G <= 16): a persistent grid of one block per SM; each block
+//   owns one contiguous row range, cut into chunks of kChunkRows. A work
+//   item is (chunk, state); warps take items round-robin, heaviest states
+//   first (the caller orders the table by width). A lane streams its rows
+//   of the state with 16-byte vector loads (GS_UNROLL in flight, evict-first),
+//   reads the matching gids through L1 (every state of the chunk reuses
+//   them) and keeps GT int64 accumulators in registers (GT = G rounded up
+//   to a power of two; a dead row's gid below GT lands in an accumulator
+//   that is never flushed). No atomics in the row loop. At the end of an
+//   item the warp reduces by shuffles and issues one global atomicAdd per
+//   (state, group). States staged through shared memory would be read by
+//   exactly one lane once, so the kernel loads them straight into
+//   registers; see PERF.md for the measured choice.
+// - Larger G (<= 512): shared-memory privatization of a tile of states
+//   (dynamic shared memory opted in up to 227 KB, so G = 512 fits 56 states
+//   and gid is read once). Lanes of a warp that share a group id are
+//   combined first (__match_any_sync, then a shuffle reduction among the
+//   peers whose steps depend only on the peer mask, so they are computed
+//   once a row and reused by every state); one shared atomicAdd per peer
+//   group, then one global atomicAdd per non-zero (state, group).
 // Integer addition mod 2^64 is order-free, so the result is bit-exact
 // whatever order the atomics land in. The output must be zeroed by the
-// caller. Contention on few groups (TPC-H Q1 has four) serializes the
-// shared atomics; that is the first thing a faster version would remove.
+// caller.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#ifndef GS_UNROLL
+#define GS_UNROLL 4  // 16-byte vector loads in flight per lane
+#endif
+#ifndef GS_BULK
+#define GS_BULK 0  // 1: items arrive by bulk copy into shared memory
+#endif
+#ifndef GS_HIST
+#define GS_HIST 0  // 1: accumulators in shared-memory histograms
+#endif
+#ifndef GS_THREADS
+#define GS_THREADS 512  // threads of a register-path block
+#endif
+#ifndef GS_BLOCKS_PER_SM
+#define GS_BLOCKS_PER_SM 1
+#endif
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 264;  // two waves of 132 SMs
-constexpr int kTileBytes = 48 * 1024;
+constexpr int kMaxStates = 64;
+constexpr int kSmallThreads = GS_THREADS;
+constexpr int kSmallBlocksPerSm = GS_BLOCKS_PER_SM;
+constexpr int kLargeThreads = 512;
+// rows of one work item; with GS_BULK a warp's two item buffers (values
+// at up to 8 bytes a row, then the mask) take 2 * kBufBytes of shared memory
+constexpr int kItemRows = GS_BULK ? 512 : 4096;
+constexpr int kBufBytes = kItemRows * 9;
+// with GS_HIST, each warp's two [GT][32] int64 histograms
+template <int GT>
+constexpr int kHistBytes = GS_HIST ? (kSmallThreads / 32) * 2 * GT * 32 * 8 : 0;
+constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in ceiling on sm_90
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void grouped_sums_kernel(const int* __restrict__ gid,
-                                    const long long* __restrict__ vals,
-                                    unsigned long long* __restrict__ out,
-                                    int n, int S, int G, int tile) {
+// element kinds: how a state's bytes widen to int64
+enum Kind { kU8 = 0, kI8 = 1, kI16 = 2, kI32 = 3, kI64 = 4 };
+
+struct GsState {
+  const void* vals;
+  const unsigned char* mask;  // nullptr: every row counts
+  int kind;
+  int out;  // row of the output this state sums into
+};
+
+struct GsTable {
+  GsState s[kMaxStates];
+};
+
+__host__ __device__ __forceinline__ int kind_bytes(int kind) {
+  return kind == kI64 ? 8 : kind == kI32 ? 4 : kind == kI16 ? 2 : 1;
+}
+
+// the register type of a BYTES-byte vector load
+template <int BYTES> struct Raw;
+template <> struct Raw<2> { using T = unsigned short; };
+template <> struct Raw<4> { using T = unsigned int; };
+template <> struct Raw<8> { using T = uint2; };
+template <> struct Raw<16> { using T = uint4; };
+
+// A lane's GT int64 accumulators (GT = G rounded up to a power of two; a
+// dead row's gid at or above G but below GT lands in one that is never
+// flushed). In registers: each value is added to acc[k] where gid == k,
+// GT predicated adds a value. With GS_HIST, in the warp's two shared-memory
+// histograms instead ([k][lane], one for even and one for odd elements of
+// a vector so that consecutive read-add-writes do not wait on each other):
+// one read-add-write a value, whatever GT.
+template <int GT>
+struct RegAcc {
+  static constexpr int kGroups = GT;
+  long long a[GT];
+  __device__ __forceinline__ void init(long long*, int) {
+#pragma unroll
+    for (int k = 0; k < GT; ++k) a[k] = 0;
+  }
+  template <int C>
+  __device__ __forceinline__ void add(int g, long long x) {
+#pragma unroll
+    for (int k = 0; k < GT; ++k)
+      if (g == k) a[k] += x;
+  }
+  __device__ __forceinline__ long long take(int k) {
+    return a[k];  // k is a compile-time index at every call
+  }
+};
+
+template <int GT>
+struct SmemAcc {
+  static constexpr int kGroups = GT;
+  long long* __restrict__ h0;  // [GT][32] of this warp, at this lane
+  long long* __restrict__ h1;
+  __device__ __forceinline__ void init(long long* warp_hist, int lane) {
+    h0 = warp_hist + lane;
+    h1 = warp_hist + GT * 32 + lane;
+#pragma unroll
+    for (int k = 0; k < GT; ++k) h0[k * 32] = h1[k * 32] = 0;
+  }
+  template <int C>
+  __device__ __forceinline__ void add(int g, long long x) {
+    if ((unsigned)g < (unsigned)GT) (C ? h1 : h0)[g * 32] += x;
+  }
+  __device__ __forceinline__ long long take(int k) {
+    const long long v = h0[k * 32] + h1[k * 32];
+    h0[k * 32] = h1[k * 32] = 0;
+    return v;
+  }
+};
+
+// `BYTES` bytes at p (aligned to BYTES) into the low bytes of a 16-byte
+// register vector: from global memory streamed past L1 (evict-first), or
+// from shared memory.
+template <int BYTES, bool SMEM>
+__device__ __forceinline__ uint4 load_vec(const void* p) {
+  using R = typename Raw<BYTES>::T;
+  R v;
+  if constexpr (SMEM)
+    v = *reinterpret_cast<const R*>(p);
+  else
+    v = __ldcs(reinterpret_cast<const R*>(p));
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (BYTES == 16) {
+    r = v;
+  } else if constexpr (BYTES == 8) {
+    r.x = v.x;
+    r.y = v.y;
+  } else {
+    r.x = v;
+  }
+  return r;
+}
+
+template <int K>
+__device__ __forceinline__ unsigned word(const uint4& r) {
+  if constexpr (K == 0) return r.x;
+  if constexpr (K == 1) return r.y;
+  if constexpr (K == 2) return r.z;
+  return r.w;
+}
+
+// Element E of a 16-byte vector of T, widened to int64 (sign-extended for
+// signed kinds, zero-extended for unsigned char).
+template <typename T, int E>
+__device__ __forceinline__ long long elem(const uint4& r) {
+  if constexpr (sizeof(T) == 8) {
+    return (long long)(((unsigned long long)word<2 * E + 1>(r) << 32) |
+                       word<2 * E>(r));
+  } else if constexpr (sizeof(T) == 4) {
+    return (long long)(int)word<E>(r);
+  } else {
+    constexpr int kPer = 4 / sizeof(T);
+    const unsigned w = word<E / kPer>(r) >> (8 * sizeof(T) * (E % kPer));
+    return (long long)(T)w;
+  }
+}
+
+// Byte E of a register vector, as 0 / 1.
+template <int E>
+__device__ __forceinline__ bool byte_set(const uint4& r) {
+  return ((word<E / 4>(r) >> (8 * (E % 4))) & 0xffu) != 0;
+}
+
+template <typename T, int E, bool MASK, typename Acc>
+__device__ __forceinline__ void add_elems(const uint4& x, const uint4& m,
+                                          const int* g, Acc& acc) {
+  if constexpr (E < 16 / (int)sizeof(T)) {
+    const long long val = elem<T, E>(x);
+    acc.template add<E & 1>(g[E], (!MASK || byte_set<E>(m)) ? val : 0ll);
+    add_elems<T, E + 1, MASK>(x, m, g, acc);
+  }
+}
+
+// VEC consecutive gids at p (aligned to 4*VEC bytes), through L1.
+template <int VEC>
+__device__ __forceinline__ void load_gids(const int* p, int (&g)[VEC]) {
+  if constexpr (VEC == 1) {
+    g[0] = __ldg(p);
+  } else if constexpr (VEC == 2) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(p));
+    g[0] = v.x;
+    g[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(p) + q);
+      g[4 * q] = v.x;
+      g[4 * q + 1] = v.y;
+      g[4 * q + 2] = v.z;
+      g[4 * q + 3] = v.w;
+    }
+  }
+}
+
+// One state over the `len` rows of an item into this lane's accumulators:
+// v and m point at the item's first value and mask byte (global or shared
+// memory), g0 at its first gid. Lane l takes vectors l, l + 32, ...;
+// `aligned` (v, m and g0 on 16-byte bounds) allows vector loads, else and
+// for the ragged tail the lane loads one row at a time.
+template <typename Acc, typename T, bool MASK, bool SMEM>
+__device__ __forceinline__ void accumulate(const T* __restrict__ v,
+                                           const unsigned char* __restrict__ m,
+                                           const int* __restrict__ g0,
+                                           int len, bool aligned, int lane,
+                                           Acc& acc) {
+  constexpr int VEC = 16 / sizeof(T);
+  int r = 0;
+  if (aligned) {
+    const int nv = len / VEC;  // whole vectors in the item
+    constexpr int kStep = 32 * GS_UNROLL;
+    for (int v0 = 0; v0 < nv; v0 += kStep) {
+      uint4 x[GS_UNROLL];
+      uint4 mk[GS_UNROLL];
+#pragma unroll
+      for (int u = 0; u < GS_UNROLL; ++u) {
+        const int k = v0 + u * 32 + lane;
+        if (k < nv) {
+          x[u] = load_vec<16, SMEM>(v + k * VEC);
+          if (MASK) mk[u] = load_vec<VEC, SMEM>(m + k * VEC);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GS_UNROLL; ++u) {
+        const int k = v0 + u * 32 + lane;
+        if (k < nv) {
+          int g[VEC];
+          load_gids<VEC>(g0 + k * VEC, g);
+          add_elems<T, 0, MASK>(x[u], mk[u], g, acc);
+        }
+      }
+    }
+    r = nv * VEC;
+  }
+  for (int i = r + lane; i < len; i += 32) {  // ragged tail, or unaligned
+    const long long val = (long long)v[i];
+    acc.template add<0>(__ldg(g0 + i), (!MASK || m[i]) ? val : 0ll);
+  }
+}
+
+// One item of state st, rows [c0, c0 + len): from shared memory (vbuf,
+// mbuf: the item's values and mask as the bulk copy left them) or, with
+// vbuf null, from global memory.
+template <typename Acc, bool SMEM>
+__device__ __forceinline__ void accumulate_item(
+    const GsState& st, const void* vbuf, const unsigned char* mbuf,
+    const int* gid, int c0, int len, bool gid_aligned, int lane,
+    Acc& acc) {
+  const int w = kind_bytes(st.kind);
+  const void* v = SMEM ? vbuf
+                       : static_cast<const char*>(st.vals) + (long long)c0 * w;
+  const unsigned char* m = SMEM ? mbuf : (st.mask ? st.mask + c0 : nullptr);
+  const bool aligned = gid_aligned && (SMEM || ((uintptr_t)v % 16 == 0 &&
+                                                (uintptr_t)m % 16 == 0));
+  const int* g0 = gid + c0;
+#define GS_CASE(KIND, T)                                                    \
+  case KIND:                                                                \
+    if (st.mask)                                                            \
+      accumulate<Acc, T, true, SMEM>(static_cast<const T*>(v), m, g0, len,  \
+                                     aligned, lane, acc);                   \
+    else                                                                    \
+      accumulate<Acc, T, false, SMEM>(static_cast<const T*>(v), m, g0, len, \
+                                      aligned, lane, acc);                  \
+    break;
+  switch (st.kind) {
+    GS_CASE(kU8, unsigned char)
+    GS_CASE(kI8, signed char)
+    GS_CASE(kI16, short)
+    GS_CASE(kI32, int)
+    default:
+    GS_CASE(kI64, long long)
+  }
+#undef GS_CASE
+}
+
+// Reduce a warp's accumulators and add them to out[st.out, :G].
+template <typename Acc>
+__device__ __forceinline__ void flush(Acc& acc, const GsState& st,
+                                      unsigned long long* out, int G,
+                                      int lane) {
+#pragma unroll
+  for (int k = 0; k < Acc::kGroups; ++k) {
+    long long v = acc.take(k);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(kFull, v, off);
+    if (lane == k && k < G && v != 0)
+      atomicAdd(out + (long long)st.out * G + k, (unsigned long long)v);
+  }
+}
+
+#if GS_BULK
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "GS_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra GS_WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// 1-D bulk copy global -> shared, completing `bytes` on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Whether an item can come by bulk copy: 16-byte aligned source, a size
+// that is a multiple of 16 (c0 is a multiple of 16 rows).
+__device__ __forceinline__ bool bulk_ok(const GsState& st, int c0, int len) {
+  const long long vb = (long long)c0 * kind_bytes(st.kind);
+  return len % 16 == 0 &&
+         ((uintptr_t)st.vals + vb) % 16 == 0 &&
+         (st.mask == nullptr || ((uintptr_t)st.mask + c0) % 16 == 0);
+}
+
+// Lane 0 starts the copy of one item (values, then mask) into buf.
+__device__ __forceinline__ void bulk_issue(const GsState& st, int c0, int len,
+                                           unsigned char* buf,
+                                           uint64_t* bar) {
+  const int w = kind_bytes(st.kind);
+  const int vbytes = len * w;
+  const int mbytes = st.mask ? len : 0;
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(vbytes + mbytes)
+      : "memory");
+  bulk_copy(buf, static_cast<const char*>(st.vals) + (long long)c0 * w, vbytes,
+            bar);
+  if (mbytes) bulk_copy(buf + kItemRows * 8, st.mask + c0, mbytes, bar);
+}
+#endif
+
+// A work item is (chunk of kItemRows rows, state); warp w takes items w,
+// w + nwarps, ... of its block's row range. With GS_BULK each warp double
+// buffers: while it sums one item from shared memory, the bulk copy of its
+// next item is in flight.
+template <int GT>
+__global__ void __launch_bounds__(kSmallThreads, kSmallBlocksPerSm)
+    grouped_sums_small(const int* __restrict__ gid,
+                       __grid_constant__ const GsTable tab, int S,
+                       unsigned long long* __restrict__ out, int n, int G,
+                       int rows_per_block) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int r0 = blockIdx.x * rows_per_block;  // a multiple of 16
+  const int r1 = min(n, r0 + rows_per_block);
+  const int nchunks = r0 < r1 ? (r1 - r0 + kItemRows - 1) / kItemRows : 0;
+  const int items = nchunks * S;
+  const bool gid_aligned = (uintptr_t)gid % 16 == 0;
+  extern __shared__ __align__(128) unsigned char smem[];
+#if GS_HIST
+  using Acc = SmemAcc<GT>;
+  long long* hist = reinterpret_cast<long long*>(smem);  // [warps][2][GT][32]
+  Acc acc;
+  acc.init(hist + warp * 2 * GT * 32, lane);
+#else
+  using Acc = RegAcc<GT>;
+  Acc acc;
+#endif
+#if GS_BULK
+  __shared__ uint64_t bars[kSmallThreads / 32][2];
+  // the bulk buffers follow the histograms, if any
+  unsigned char* bufs[2] = {smem + kHistBytes<GT> + (2 * warp) * kBufBytes,
+                            smem + kHistBytes<GT> + (2 * warp + 1) * kBufBytes};
+  if (lane == 0) {
+    mbar_init(&bars[warp][0]);
+    mbar_init(&bars[warp][1]);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncthreads();
+  uint32_t parity[2] = {0u, 0u};
+  auto item_rows = [&](int item, int& c0, int& len) {
+    c0 = r0 + (item / S) * kItemRows;
+    len = min(r1, c0 + kItemRows) - c0;
+  };
+  int c0, len;
+  if (warp < items) {
+    item_rows(warp, c0, len);
+    const GsState& st = tab.s[warp % S];
+    if (lane == 0 && bulk_ok(st, c0, len))
+      bulk_issue(st, c0, len, bufs[0], &bars[warp][0]);
+  }
+  for (int item = warp, j = 0; item < items; item += nwarps, ++j) {
+    const int next = item + nwarps;
+    if (next < items) {  // start the next item's copy into the other buffer
+      int nc0, nlen;
+      item_rows(next, nc0, nlen);
+      const GsState& nst = tab.s[next % S];
+      if (lane == 0 && bulk_ok(nst, nc0, nlen))
+        bulk_issue(nst, nc0, nlen, bufs[(j + 1) & 1], &bars[warp][(j + 1) & 1]);
+    }
+    item_rows(item, c0, len);
+    const GsState& st = tab.s[item % S];
+#if !GS_HIST
+    acc.init(nullptr, lane);
+#endif
+    const int b = j & 1;
+    if (bulk_ok(st, c0, len)) {
+      mbar_wait(&bars[warp][b], parity[b]);
+      parity[b] ^= 1u;
+      accumulate_item<Acc, true>(st, bufs[b], bufs[b] + kItemRows * 8, gid,
+                                 c0, len, gid_aligned, lane, acc);
+    } else {
+      accumulate_item<Acc, false>(st, nullptr, nullptr, gid, c0, len,
+                                  gid_aligned, lane, acc);
+    }
+    __syncwarp();  // every lane is done with buffer b before it is refilled
+    flush(acc, st, out, G, lane);
+  }
+#else
+  for (int item = warp; item < items; item += nwarps) {
+#if !GS_HIST
+    acc.init(nullptr, lane);
+#endif
+    const int c0 = r0 + (item / S) * kItemRows;
+    const int len = min(r1, c0 + kItemRows) - c0;
+    const GsState& st = tab.s[item % S];
+    accumulate_item<Acc, false>(st, nullptr, nullptr, gid, c0, len,
+                                gid_aligned, lane, acc);
+    flush(acc, st, out, G, lane);
+  }
+#endif
+}
+
+__device__ __forceinline__ long long load_state(const GsState& st, long long i) {
+  if (st.mask && !st.mask[i]) return 0;
+  switch (st.kind) {
+    case kU8: return static_cast<const unsigned char*>(st.vals)[i];
+    case kI8: return static_cast<const signed char*>(st.vals)[i];
+    case kI16: return static_cast<const short*>(st.vals)[i];
+    case kI32: return static_cast<const int*>(st.vals)[i];
+    default: return static_cast<const long long*>(st.vals)[i];
+  }
+}
+
+__global__ void __launch_bounds__(kLargeThreads)
+    grouped_sums_large(const int* __restrict__ gid,
+                       __grid_constant__ const GsTable tab, int S,
+                       unsigned long long* __restrict__ out, int n, int G,
+                       int tile) {
   extern __shared__ unsigned long long part[];
   const int s0 = blockIdx.y * tile;
   const int ns = min(tile, S - s0);
   for (int k = threadIdx.x; k < ns * G; k += blockDim.x) part[k] = 0ull;
   __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const int g = gid[i];
-    if ((unsigned)g >= (unsigned)G) continue;
+  // every lane of a warp runs the same number of iterations (shuffles)
+  for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+       base < n; base += stride) {
+    const long long i = base + lane;
+    const int g = i < n ? gid[i] : -1;
+    const bool live = (unsigned)g < (unsigned)G;
+    const unsigned peers = __match_any_sync(kFull, live ? g : -1 - lane);
+    const bool leader = (peers & below) == 0;
+    // reduction steps among the peers: each round a lane adds the value of
+    // its next remaining peer above it; lanes at odd rank drop out
+    unsigned p = peers & (0xfffffffeu << lane);
+    int rank = __popc(peers & below);
+    int nxt[5];
+    int steps = 0;
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      nxt[t] = 0;
+      if (__any_sync(kFull, p != 0)) {
+        nxt[t] = __ffs(p);
+        p &= ~__ballot_sync(kFull, rank & 1);
+        rank >>= 1;
+        steps = t + 1;
+      }
+    }
     for (int s = 0; s < ns; ++s) {
-      const unsigned long long v =
-          (unsigned long long)vals[(long long)(s0 + s) * n + i];
-      if (v) atomicAdd(&part[s * G + g], v);
+      long long x = live ? load_state(tab.s[s0 + s], i) : 0ll;
+#pragma unroll
+      for (int t = 0; t < 5; ++t) {
+        if (t < steps) {
+          const long long y = __shfl_sync(kFull, x, (nxt[t] - 1) & 31);
+          if (nxt[t]) x += y;
+        }
+      }
+      if (live && leader && x != 0)
+        atomicAdd(&part[s * G + g], (unsigned long long)x);
     }
   }
   __syncthreads();
   for (int k = threadIdx.x; k < ns * G; k += blockDim.x) {
     const unsigned long long v = part[k];
-    if (v) atomicAdd(&out[(long long)s0 * G + k], v);
+    if (v) atomicAdd(&out[(long long)tab.s[s0 + k / G].out * G + k % G], v);
   }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (!count) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess || count <= 0)
+      count = 132;
+  }
+  return count;
+}
+
+template <int GT>
+cudaError_t launch_small(const int* gid, const GsTable& tab, int S,
+                         unsigned long long* out, int n, int G,
+                         cudaStream_t stream) {
+  const size_t smem = (GS_BULK ? (size_t)2 * (kSmallThreads / 32) * kBufBytes
+                               : 0) + kHistBytes<GT>;
+  static bool opted_in = false;
+  if (smem > 48 * 1024 && !opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        grouped_sums_small<GT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  int blocks = sm_count() * kSmallBlocksPerSm;
+  const int min_rows = 256;
+  if (blocks > (n + min_rows - 1) / min_rows)
+    blocks = (n + min_rows - 1) / min_rows;
+  if (blocks < 1) blocks = 1;
+  int rows = (n + blocks - 1) / blocks;
+  rows = (rows + 15) / 16 * 16;  // items start on 16-row (16-byte) bounds
+  grouped_sums_small<GT><<<blocks, kSmallThreads, smem, stream>>>(
+      gid, tab, S, out, n, G, rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// gid int32[n]; vals int64[S, n] row-major; out int64[S, G], zeroed.
-extern "C" int grouped_sums_launch(const void* gid, const void* vals,
-                                   void* out, int n, int S, int G,
-                                   void* stream) {
-  if (n <= 0 || S <= 0 || G <= 0) return 0;
-  int tile = kTileBytes / (G * 8);
-  if (tile < 1) return (int)cudaErrorInvalidValue;  // G > 6144
-  if (tile > S) tile = S;
-  const int ytiles = (S + tile - 1) / tile;
-  int blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  dim3 grid(blocks, ytiles);
-  grouped_sums_kernel<<<grid, kThreads, (size_t)tile * G * 8,
-                        (cudaStream_t)stream>>>(
-      (const int*)gid, (const long long*)vals, (unsigned long long*)out, n,
-      S, G, tile);
+extern "C" {
+
+// Host-side descriptor, as the caller lays it out (24 bytes).
+struct GsStateHost {
+  const void* vals;
+  const void* mask;
+  int kind;
+  int out;
+};
+
+// gid int32[n]; states: `count` descriptors in host memory (count <=
+// kMaxStates), each a device pointer to n elements of its kind, an
+// optional bool mask[n] and its output row; out int64[rows, G]: its first
+// zero_rows rows are zeroed here first (the caller passes the output's
+// row count on the first launch of a call, 0 on later ones).
+// The caller's launch plan picks the path: groups_tile in {2, 4, 8, 16}
+// (>= G) takes the register path; groups_tile 0 takes the shared-memory
+// path with states_tile states a tile.
+int grouped_sums_launch(const void* gid, const void* states, int count,
+                        void* out, int zero_rows, int n, int G,
+                        int groups_tile, int states_tile, void* stream) {
+  if (zero_rows > 0 && G > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, (size_t)zero_rows * G * 8,
+                                    static_cast<cudaStream_t>(stream));
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n <= 0 || count <= 0 || G <= 0) return 0;
+  if (count > kMaxStates || G > 512) return (int)cudaErrorInvalidValue;
+  GsTable tab;
+  const GsStateHost* h = static_cast<const GsStateHost*>(states);
+  for (int s = 0; s < count; ++s) {
+    if (h[s].kind < kU8 || h[s].kind > kI64) return (int)cudaErrorInvalidValue;
+    tab.s[s].vals = h[s].vals;
+    tab.s[s].mask = static_cast<const unsigned char*>(h[s].mask);
+    tab.s[s].kind = h[s].kind;
+    tab.s[s].out = h[s].out;
+  }
+  const int* g = static_cast<const int*>(gid);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (groups_tile > 0 && groups_tile < G) return (int)cudaErrorInvalidValue;
+  switch (groups_tile) {
+    case 0: break;
+    case 2: return (int)launch_small<2>(g, tab, count, o, n, G, st);
+    case 4: return (int)launch_small<4>(g, tab, count, o, n, G, st);
+    case 8: return (int)launch_small<8>(g, tab, count, o, n, G, st);
+    case 16: return (int)launch_small<16>(g, tab, count, o, n, G, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+
+  const int tile = states_tile;
+  if (tile < 1 || tile > count || (size_t)tile * G * 8 > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        grouped_sums_large, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  const int ytiles = (count + tile - 1) / tile;
+  const size_t smem = (size_t)tile * G * 8;
+  int per_sm = (int)(kMaxSmem / smem);
+  if (per_sm > 4) per_sm = 4;
+  int bx = (sm_count() * per_sm + ytiles - 1) / ytiles;
+  const int need = (n + kLargeThreads - 1) / kLargeThreads;
+  if (bx > need) bx = need;
+  if (bx < 1) bx = 1;
+  grouped_sums_large<<<dim3(bx, ytiles), kLargeThreads, smem, st>>>(
+      g, tab, count, o, n, G, tile);
   return (int)cudaGetLastError();
 }
+
+}  // extern "C"

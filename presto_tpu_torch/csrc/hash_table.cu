@@ -28,16 +28,30 @@
 //   with occ = 0.
 // - join_insert: one thread per live row claims the first slot of its
 //   chain whose row is -1 with atomicCAS. Chain order is nondeterministic.
-// - join_probe: one thread per probe row walks its chain to the first
-//   empty slot, verifies the K planes, writes the first F matches to
-//   mm[i, :] (pre-filled with -1 by the caller) and keeps counting past F;
-//   rows with count > F add one to the overflow counter. Match order within
-//   a row follows chain order, so it may differ from the serial kernel's.
+// - join_probe (redesigned for Hopper): the table (slot_row, then the
+//   build keys by row) is small next to the 50 MB L2 and is read again by
+//   every probe batch of a query, so the kernel is bound by the latency of
+//   each chain's dependent loads (slot_row[s], then bkeys[r]), not by
+//   bytes. Each thread therefore walks JP_ROWS probe rows at once, one
+//   slot of each per round, so those rows' loads are in flight together;
+//   the table is read through the cache path set by JP_CG (PERF.md has
+//   the measurement that chose it). A row's first F matches stay in
+//   registers (F a power of two up to 16; wider fanouts store matches as
+//   found) and the kernel writes every entry of every row, dead rows
+//   included: matches, then -1 padding, as 16-byte stores where F % 4 ==
+//   0, and the exact count. So mm and cnt need no fill; rows with more than
+//   F matches are counted per warp by shuffles and added to the one-word
+//   overflow counter once per block. Match order within a row follows
+//   chain order, so it may differ from the serial kernel's.
 //
-// Every output is allocated (and zeroed or filled) by the caller; the
-// kernels allocate nothing and do not synchronise.
+// The callers allocate every output; group_insert's and join_insert's
+// are zeroed or filled by them; of join_probe's only the one-word overflow
+// counter needs a fill, which its launcher issues. The kernels allocate
+// nothing and do not synchronise.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -117,35 +131,170 @@ __global__ void join_insert_kernel(const int* __restrict__ slot0,
   }
 }
 
-__global__ void join_probe_kernel(const int* __restrict__ slot0,
-                                  const long long* __restrict__ pkeys,
-                                  const bool* __restrict__ plive,
-                                  const int* __restrict__ slot_row,
-                                  const long long* __restrict__ bkeys,
-                                  int* __restrict__ mm, int* __restrict__ cnt,
-                                  int* stat, int n, int K, long long cap_b,
-                                  int tcap, int F) {
+#ifndef JP_ROWS
+#define JP_ROWS 2  // probe rows one thread walks at once
+#endif
+#ifndef JP_THREADS
+#define JP_THREADS 128
+#endif
+#ifndef JP_CG
+#define JP_CG 0  // 1: read the table with __ldcg (L2 only), 0: __ldg
+#endif
+
+template <typename T>
+__device__ __forceinline__ T ld_table(const T* p) {
+#if JP_CG
+  return __ldcg(p);
+#else
+  return __ldg(p);
+#endif
+}
+
+// Row i's first matches (or -1) as FT ints; FT is the fanout when it is a
+// small power of two (the registers hold the row), 0 for a wider fanout
+// (matches are stored as they are found and the rest padded after).
+template <int FT>
+struct MatchRow {
+  int m[FT > 0 ? FT : 1];
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int f = 0; f < (FT > 0 ? FT : 1); ++f) m[f] = -1;
+  }
+  __device__ __forceinline__ void put(int* mm_row, int c, int r) {
+    if constexpr (FT > 0) {
+#pragma unroll
+      for (int f = 0; f < FT; ++f)
+        if (f == c) m[f] = r;
+    } else {
+      mm_row[c] = r;
+    }
+  }
+  __device__ __forceinline__ void store(int* mm_row, int c, int F) const {
+    if constexpr (FT >= 4) {
+#pragma unroll
+      for (int q = 0; q < FT / 4; ++q)
+        reinterpret_cast<int4*>(mm_row)[q] =
+            make_int4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+    } else if constexpr (FT == 2) {
+      *reinterpret_cast<int2*>(mm_row) = make_int2(m[0], m[1]);
+    } else if constexpr (FT == 1) {
+      mm_row[0] = m[0];
+    } else {
+      for (int f = c < F ? c : F; f < F; ++f) mm_row[f] = -1;
+    }
+  }
+};
+
+// Each thread walks JP_ROWS probe chains at once, one slot of each per
+// round, so the dependent loads of different rows (slot_row[s], then the
+// build key) are in flight together.
+template <int FT>
+__global__ void __launch_bounds__(JP_THREADS)
+    join_probe_kernel(const int* __restrict__ slot0,
+                      const long long* __restrict__ pkeys,
+                      const bool* __restrict__ plive,
+                      const int* __restrict__ slot_row,
+                      const long long* __restrict__ bkeys,
+                      int* __restrict__ mm, int* __restrict__ cnt, int* stat,
+                      int n, int K, long long cap_b, int tcap, int F) {
+  __shared__ int block_ovf;
+  if (threadIdx.x == 0) block_ovf = 0;
+  __syncthreads();
   const int mask = tcap - 1;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    int c = 0;
-    if (plive[i]) {
-      const int s0 = slot0[i];
-      for (int j = 0; j < tcap; ++j) {
-        const int r = slot_row[(s0 + j) & mask];
-        if (r < 0) break;
-        bool eq = true;
-        for (int k = 0; k < K && eq; ++k)
-          eq = bkeys[k * cap_b + r] == pkeys[(long long)k * n + i];
-        if (eq) {
-          if (c < F) mm[(long long)i * F + c] = r;
-          ++c;
+  const int nthreads = gridDim.x * blockDim.x;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  int ovf = 0;
+  for (int base = t; base < n; base += nthreads * JP_ROWS) {
+    int row[JP_ROWS], slot[JP_ROWS], j[JP_ROWS], c[JP_ROWS];
+    long long key[JP_ROWS];
+    bool go[JP_ROWS];
+    MatchRow<FT> out[JP_ROWS];
+#pragma unroll
+    for (int q = 0; q < JP_ROWS; ++q) {
+      row[q] = base + q * nthreads;
+      go[q] = row[q] < n && plive[row[q]];
+      slot[q] = go[q] ? slot0[row[q]] : 0;
+      key[q] = go[q] ? pkeys[row[q]] : 0;
+      j[q] = 0;
+      c[q] = 0;
+      out[q].init();
+    }
+    bool any = true;
+    while (any) {
+      int r[JP_ROWS];
+      long long bk[JP_ROWS];
+#pragma unroll
+      for (int q = 0; q < JP_ROWS; ++q)
+        r[q] = go[q] ? ld_table(slot_row + ((slot[q] + j[q]) & mask)) : -1;
+#pragma unroll
+      for (int q = 0; q < JP_ROWS; ++q)
+        bk[q] = r[q] >= 0 ? ld_table(bkeys + r[q]) : 0;
+      any = false;
+#pragma unroll
+      for (int q = 0; q < JP_ROWS; ++q) {
+        if (!go[q]) continue;
+        if (r[q] < 0) {
+          go[q] = false;
+          continue;
         }
+        bool eq = bk[q] == key[q];
+        for (int k = 1; k < K && eq; ++k)
+          eq = ld_table(bkeys + k * cap_b + r[q]) ==
+               pkeys[(long long)k * n + row[q]];
+        if (eq) {
+          if (c[q] < F) out[q].put(mm + (long long)row[q] * F, c[q], r[q]);
+          ++c[q];
+        }
+        go[q] = ++j[q] < tcap;
+        any |= go[q];
       }
     }
-    cnt[i] = c;
-    if (c > F) atomicAdd(&stat[0], 1);
+#pragma unroll
+    for (int q = 0; q < JP_ROWS; ++q) {
+      if (row[q] < n) {
+        out[q].store(mm + (long long)row[q] * F, c[q], F);
+        cnt[row[q]] = c[q];
+        ovf += c[q] > F;
+      }
+    }
   }
+  // rows over the fanout: counted per warp, added once per block
+  const int lane = threadIdx.x & 31;
+  int w = ovf;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    w += __shfl_xor_sync(0xffffffffu, w, off);
+  if (lane == 0 && w) atomicAdd(&block_ovf, w);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_ovf) atomicAdd(stat, block_ovf);
+}
+
+int sm_count() {
+  static int count = 0;
+  if (!count) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess || count <= 0)
+      count = 132;
+  }
+  return count;
+}
+
+template <int FT>
+cudaError_t launch_probe(const int* slot0, const long long* pkeys,
+                         const bool* plive, const int* slot_row,
+                         const long long* bkeys, int* mm, int* cnt, int* stat,
+                         int n, int K, long long cap_b, int tcap, int F,
+                         cudaStream_t stream) {
+  const int per_block = JP_THREADS * JP_ROWS;
+  int blocks = (n + per_block - 1) / per_block;
+  const int max_blocks = sm_count() * (2048 / JP_THREADS);
+  if (blocks > max_blocks) blocks = max_blocks;
+  join_probe_kernel<FT><<<blocks, JP_THREADS, 0, stream>>>(
+      slot0, pkeys, plive, slot_row, bkeys, mm, cnt, stat, n, K, cap_b, tcap,
+      F);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -176,17 +325,29 @@ extern "C" int join_insert_launch(const void* slot0, const void* live,
 }
 
 // slot0 int32[n]; pkeys int64[K, n]; plive bool[n]; slot_row int32[tcap];
-// bkeys int64[K, cap_b] -> mm int32[n, F] (filled with -1); cnt int32[n];
-// stat int32[1] (zeroed: rows with more than F matches).
+// bkeys int64[K, cap_b] -> mm int32[n, F] and cnt int32[n], every entry
+// written (no fill needed; mm 16-byte aligned); stat int32[1], zeroed here
+// first: rows with more than F matches.
 extern "C" int join_probe_launch(const void* slot0, const void* pkeys,
                                  const void* plive, const void* slot_row,
                                  const void* bkeys, void* mm, void* cnt,
                                  void* stat, int n, int K, long long cap_b,
                                  int tcap, int F, void* stream) {
-  if (n <= 0) return 0;
-  join_probe_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)slot0, (const long long*)pkeys, (const bool*)plive,
-      (const int*)slot_row, (const long long*)bkeys, (int*)mm, (int*)cnt,
-      (int*)stat, n, K, cap_b, tcap, F);
-  return (int)cudaGetLastError();
+  if (K < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(stat, 0, sizeof(int), (cudaStream_t)stream);
+  if (e != cudaSuccess || n <= 0) return (int)e;
+  auto go = [&](auto ft) {
+    return (int)launch_probe<decltype(ft)::value>(
+        (const int*)slot0, (const long long*)pkeys, (const bool*)plive,
+        (const int*)slot_row, (const long long*)bkeys, (int*)mm, (int*)cnt,
+        (int*)stat, n, K, cap_b, tcap, F, (cudaStream_t)stream);
+  };
+  switch (F) {
+    case 1: return go(std::integral_constant<int, 1>());
+    case 2: return go(std::integral_constant<int, 2>());
+    case 4: return go(std::integral_constant<int, 4>());
+    case 8: return go(std::integral_constant<int, 8>());
+    case 16: return go(std::integral_constant<int, 16>());
+    default: return go(std::integral_constant<int, 0>());
+  }
 }

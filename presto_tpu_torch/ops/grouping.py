@@ -291,29 +291,44 @@ def _widen_state(r: StateCol, total: int, cap: int) -> StateCol:
     return StateCol(v, valid, r.op)
 
 
+def _int_sum_states(states, live, int_states: list) -> list:
+    """Append the `grouped_sums` states of each integer sum to int_states,
+    as they lie: its values masked by its own validity, and for a sum (not
+    a count) its valid-row count as a bool state. gid already drops dead
+    rows, so neither needs `live`; a count state that is a tensor already
+    in the list (such as `live`) is not added twice. Returns per state
+    (values index, count index), (None, None) for a state that is not an
+    integer sum."""
+    seen = {id(t): i for i, t in enumerate(int_states)}
+
+    def add(t):
+        if id(t) not in seen:
+            seen[id(t)] = len(int_states)
+            int_states.append(t)
+        return seen[id(t)]
+
+    plan = []
+    for s in states:
+        if s.op not in ("sum", "count_add") or s.values.is_floating_point():
+            plan.append((None, None))
+            continue
+        main = len(int_states)
+        int_states.append(s.values if s.validity is None
+                          else (s.values, s.validity))
+        count = None if s.op == "count_add" else add(
+            live if s.validity is None else s.validity)
+        plan.append((main, count))
+    return plan
+
+
 def _kernel_direct_merge(keys, states, live, num_groups_cap, dom_slots,
                          gid, total):
     """Direct small-domain path through the grouped_sums kernel: integer
     sums (decimal money, counts) and validity counts fuse into one exact
     pass; float sums and min/max states take the indexed reduction."""
-    int_states, plan = [], []
-    # group occupancy ride-along: one all-ones int state
-    int_states.append(live.to(torch.int64))
-    for s in states:
-        valid = live if s.validity is None else (live & s.validity)
-        int_sum = (s.op in ("sum", "count_add")
-                   and not s.values.is_floating_point())
-        if int_sum:
-            contrib = torch.where(valid, s.values, torch.zeros_like(s.values))
-            main = ("int", len(int_states))
-            int_states.append(contrib.to(torch.int64))
-        else:
-            main = ("indexed", None)
-        if int_sum and s.op != "count_add":
-            plan.append((main, len(int_states)))
-            int_states.append(valid.to(torch.int64))
-        else:
-            plan.append((main, None))
+    # group occupancy ride-along: the live flags
+    int_states = [live]
+    plan = _int_sum_states(states, live, int_states)
     iouts = _gk.grouped_sums(gid, int_states, total)
 
     counts = _widen(iouts[0], total, num_groups_cap, torch.int32)
@@ -324,8 +339,8 @@ def _kernel_direct_merge(keys, states, live, num_groups_cap, dom_slots,
     idx = gid.to(torch.int64)
     has = torch.ones(total, dtype=torch.bool, device=live.device)
     state_out = []
-    for s, ((kind, i), nv_i) in zip(states, plan):
-        if kind == "indexed":
+    for s, (i, nv_i) in zip(states, plan):
+        if i is None:
             r = _segment_reduce(s.values, s.validity, s.op, idx, has, total)
             if r.op != "count_add" and s.validity is None:
                 r = StateCol(r.values, iouts[0] > 0, r.op)
@@ -391,17 +406,8 @@ def _hash_grouped_merge(keys, states, live, num_groups_cap):
 def _hash_states_kernel(states, live, gid, tcap: int):
     """All-integer-sum states reduce in one `grouped_sums` pass (gid >=
     tcap marks dead/unplaced rows)."""
-    int_states, plan = [], []
-    for s in states:
-        valid = live if s.validity is None else (live & s.validity)
-        contrib = torch.where(valid, s.values, torch.zeros_like(s.values))
-        main = len(int_states)
-        int_states.append(contrib.to(torch.int64))
-        if s.op != "count_add":
-            plan.append((main, len(int_states)))
-            int_states.append(valid.to(torch.int64))
-        else:
-            plan.append((main, None))
+    int_states = []
+    plan = _int_sum_states(states, live, int_states)
     iouts = _gk.grouped_sums(gid, int_states, tcap)
     state_out = []
     for s, (mi, ni) in zip(states, plan):

@@ -294,9 +294,10 @@ def _join_probe_cuda(slot0, pkeys, plive, slot_row, bkeys, fanout: int):
     dev = slot0.device
     n = slot0.shape[0]
     k = pkeys.shape[0]
-    mm = torch.full((n, fanout), -1, dtype=torch.int32, device=dev)
+    # the kernel writes every entry of mm and cnt; the launch zeroes stat
+    mm = torch.empty((n, fanout), dtype=torch.int32, device=dev)
     cnt = torch.empty(n, dtype=torch.int32, device=dev)
-    stat = torch.zeros(1, dtype=torch.int32, device=dev)
+    stat = torch.empty(1, dtype=torch.int32, device=dev)
     lib = library("hash_table")
     join_probe.launches += 1
     check(lib.join_probe_launch(

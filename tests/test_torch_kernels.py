@@ -70,6 +70,74 @@ def test_grouped_sums_ignores_dead_rows():
     _eq(got, exp)
 
 
+def _mixed_states(rng, n, count):
+    """`count` states cycling through the kernel's element kinds, every
+    third one with a bool mask; returns (torch states, numpy int64 values
+    as the JAX side sees them)."""
+    kinds = [(np.bool_, 0, 2), (np.int32, -2**31, 2**31 - 1),
+             (np.int64, -2**63, 2**63 - 1), (np.int8, -128, 127),
+             (np.int16, -2**15, 2**15 - 1), (np.uint8, 0, 255)]
+    states, ref = [], []
+    for j in range(count):
+        dt, lo, hi = kinds[j % len(kinds)]
+        v = rng.integers(lo, hi, n, dtype=np.int64, endpoint=dt != np.bool_)
+        v = v.astype(dt)
+        wide = v.astype(np.int64)
+        if j % 3 == 2:
+            m = rng.random(n) < 0.7
+            states.append((_t(v), _t(m)))
+            wide = np.where(m, wide, 0)
+        else:
+            states.append(_t(v))
+        ref.append(wide)
+    return states, ref
+
+
+# (rows, groups, states, every row dead): G on both sides of the register
+# path's 16, more states than one launch's 64, all dead, no rows
+@pytest.mark.parametrize("n,g,count,dead", [
+    (1000, 6, 12, False), (777, 16, 9, False), (600, 40, 12, False),
+    (300, 20, 70, False), (256, 6, 6, True), (0, 6, 6, False)])
+def test_grouped_sums_widths_masks_and_edges(n, g, count, dead):
+    rng = np.random.default_rng(n + 7 * g + count)
+    gid = (np.full(n, g, np.int32) if dead
+           else rng.integers(-1, g + 2, n).astype(np.int32))
+    states, wide = _mixed_states(rng, n, count)
+    got = gk.grouped_sums(_t(gid), states, g)
+    assert len(got) == count and all(a.dtype == torch.int64 for a in got)
+    if n == 0 or dead:
+        for a in got:
+            _eq(a, np.zeros(g, np.int64))
+        return
+    ref = ref_pg.grouped_sums(jnp.asarray(gid), [jnp.asarray(w) for w in wide],
+                              g, interpret=True)
+    for a, b in zip(got, ref):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("widths,g,want", [
+    # Q1's direct path: 16 int64 states and 13 bool ones, 6 groups
+    ([1] + [8, 1] * 12 + [8] * 4, 6,
+     [(tuple(i for i in range(29) if i not in range(0, 26, 2)) + tuple(
+         range(0, 26, 2)), "registers", 8, 0)]),
+    ([4, 1, 8], 1, [((2, 0, 1), "registers", 2, 0)]),
+    ([8, 8], 16, [((0, 1), "registers", 16, 0)]),
+    ([8] * 3, 17, [((0, 1, 2), "shared", 0, 3)]),
+    ([2] * 70, 512, [(tuple(range(64)), "shared", 0, 56),
+                     (tuple(range(64, 70)), "shared", 0, 6)]),
+    ([1, 8] * 35, 6, [(tuple(range(1, 70, 2)) + tuple(range(0, 58, 2)),
+                       "registers", 8, 0),
+                      (tuple(range(58, 70, 2)), "registers", 8, 0)]),
+])
+def test_grouped_sums_launch_plan(widths, g, want):
+    assert [tuple(p) for p in gk.launch_plan(widths, g)] == want
+
+
+def test_grouped_sums_launch_plan_rejects_too_many_groups():
+    with pytest.raises(ValueError):
+        gk.launch_plan([8], gk.MAX_GROUPS + 1)
+
+
 # ---------------------------------------------------------------------------
 # group_insert
 
@@ -154,6 +222,28 @@ def test_join_duplicates(fanout):
                     for k, lv in zip(pkeys[0], plive)])
     _eq(cnt, exp)
     assert int(ovf) == int((exp > fanout).sum())
+
+
+# (fanout, no live build row — an empty table, every probe row dead)
+@pytest.mark.parametrize("fanout,empty,dead", [
+    (1, False, False), (8, False, False), (16, False, False),
+    (8, True, False), (8, False, True)])
+def test_join_probe_fanouts_and_edges(fanout, empty, dead):
+    rng = np.random.default_rng(fanout + 2 * empty + dead)
+    nb = 1200
+    bkeys = rng.integers(0, 60, (1, nb)).astype(np.int64)
+    blive = np.zeros(nb, bool) if empty else rng.random(nb) < 0.9
+    np_ = 1024
+    pkeys = rng.integers(0, 70, (1, np_)).astype(np.int64)
+    plive = np.zeros(np_, bool) if dead else rng.random(np_) < 0.9
+    mm, cnt, ovf = _join_both(bkeys, blive, pkeys, plive, fanout)
+    mm, cnt = np.asarray(mm), np.asarray(cnt)
+    exp = np.array([int(((bkeys[0] == k) & blive).sum()) if lv else 0
+                    for k, lv in zip(pkeys[0], plive)], dtype=np.int64)
+    _eq(cnt, exp)
+    assert int(ovf) == int((exp > fanout).sum())
+    past = np.arange(fanout)[None, :] >= np.minimum(cnt, fanout)[:, None]
+    assert (mm[past] == -1).all() and (mm[~past] >= 0).all()
 
 
 def test_join_collision_heavy_two_keys():
