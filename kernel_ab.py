@@ -29,14 +29,13 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# macro settings of csrc/ tried by --variants (defaults: GS_BULK=0,
-# GS_HIST=0, GS_THREADS=512, GS_BLOCKS_PER_SM=1, GS_UNROLL=4, JP_ROWS=2,
-# JP_THREADS=128, JP_CG=0)
+# macro settings of csrc/ tried by --variants (defaults: GS_HIST=1,
+# GS_THREADS=1024, GS_UNROLL=4, GS_ITEM_ROWS=1024, GS_PREFETCH=1,
+# JP_ROWS=2, JP_THREADS=128, JP_CG=0)
 VARIANTS = {
-    "grouped_sums": [("GS_BULK=0",), ("GS_BULK=1",), ("GS_HIST=1",),
-                     ("GS_HIST=1", "GS_THREADS=1024"),
-                     ("GS_HIST=1", "GS_BLOCKS_PER_SM=2"),
-                     ("GS_HIST=1", "GS_BULK=1"), ("GS_UNROLL=8",)],
+    "grouped_sums": [("GS_PREFETCH=0",), ("GS_UNROLL=2",),
+                     ("GS_UNROLL=2", "GS_PREFETCH=0"), ("GS_ITEM_ROWS=2048",),
+                     ("GS_THREADS=512",), ("GS_HIST=0", "GS_THREADS=512")],
     "hash_table": [("JP_ROWS=1",), ("JP_ROWS=2",), ("JP_ROWS=4",),
                    ("JP_ROWS=2", "JP_CG=1"), ("JP_ROWS=2", "JP_THREADS=256")],
 }
@@ -96,7 +95,7 @@ def time_root(torch, cs, inputs, flush):
         cs._bare_join_probe(torch, library("hash_table"), sp, *jin)[0],
         lambda: hk._join_probe_cuda(*jin), lambda: hk.join_probe(*jin))
 
-    rows = {}
+    rows = yardsticks(torch, cs, inputs, flush)
     for name, (bare, launcher, wrapper) in out.items():
         rows[name] = {
             "ms_cold": cs.kernel_alone_ms(torch, bare, flush=flush),
@@ -104,6 +103,27 @@ def time_root(torch, cs, inputs, flush):
             "launcher_ms": cs.cuda_ms(torch, launcher),
             "wrapper_ms": cs.cuda_ms(torch, wrapper)}
     return rows
+
+
+def yardsticks(torch, cs, inputs, flush):
+    """Two PyTorch calls timed as the kernels are: the launch floor (a
+    one-element fill) and one read of as many bytes as grouped_sums'
+    distinct inputs (torch.amax over an int64 buffer of that size)."""
+    dev = torch.device("cuda")
+    tiny = torch.empty(1, device=dev)
+    gid, states, g = inputs["grouped_sums"][1]
+    nbytes = (cs.distinct_bytes(gid, *cs._tensors(states))
+              + len(states) * g * 8)
+    buf = torch.zeros(nbytes // 8, dtype=torch.int64, device=dev)
+    res = torch.empty((), dtype=torch.int64, device=dev)
+    return {
+        "launch floor (fill of one element)": {
+            "ms_warm": cs.kernel_alone_ms(torch, lambda: tiny.fill_(0.0))},
+        f"read of {nbytes} bytes (torch.amax)": {
+            "ms_cold": cs.kernel_alone_ms(
+                torch, lambda: torch.amax(buf, dim=0, out=res), flush=flush),
+            "ms_warm": cs.kernel_alone_ms(
+                torch, lambda: torch.amax(buf, dim=0, out=res))}}
 
 
 def time_variants(torch, cs, inputs, flush):

@@ -9,25 +9,32 @@
 //
 // Bound on this card: bytes. The kernel reads gid (4 B a row), each state
 // at its own width (1, 2, 4 or 8 B a row) and each mask (1 B a row) once,
-// and writes 8*S*G bytes; it does about n*S*G compare-adds, which at Q1's
-// G <= 8 stay under the time the bytes take.
+// and writes 8*S*G bytes; it does n*S additions.
 //
 // Design. States arrive by pointer, at their own width, in a descriptor
 // table passed by value as a kernel parameter (up to kMaxStates a launch):
 // the caller neither stacks nor widens them.
 // - Small G (G <= 16): a persistent grid of one block per SM; each block
-//   owns one contiguous row range, cut into chunks of kChunkRows. A work
-//   item is (chunk, state); warps take items round-robin, heaviest states
-//   first (the caller orders the table by width). A lane streams its rows
-//   of the state with 16-byte vector loads (GS_UNROLL in flight, evict-first),
-//   reads the matching gids through L1 (every state of the chunk reuses
-//   them) and keeps GT int64 accumulators in registers (GT = G rounded up
-//   to a power of two; a dead row's gid below GT lands in an accumulator
-//   that is never flushed). No atomics in the row loop. At the end of an
-//   item the warp reduces by shuffles and issues one global atomicAdd per
-//   (state, group). States staged through shared memory would be read by
-//   exactly one lane once, so the kernel loads them straight into
-//   registers; see PERF.md for the measured choice.
+//   owns one contiguous row range. It stages the gids of up to kChunkRows
+//   rows in shared memory once, as bytes (0xFF for a dead row), for every
+//   state to reuse; before that, every thread asks for a few of the
+//   chunk's state ranges to be brought into L2 (cp.async.bulk.prefetch),
+//   so that the values are on their way while the gids arrive. A work
+//   item is (kItemRows rows, state); the warps take
+//   items round-robin, heaviest states first (the caller orders the table
+//   by width). A lane streams its rows of the state with 16-byte vector
+//   loads, GS_UNROLL of them in flight, evict-first, and adds each value to
+//   its accumulator for the row's group. No atomics in the row loop. At
+//   the end of an item the warp reduces by shuffles and issues one global
+//   atomicAdd per (state, group).
+//   The accumulators (RegAcc, SmemAcc below) and the way the values arrive
+//   were chosen by measurement (PERF.md; kernel_ab.py --variants): G int64
+//   registers a lane with a predicated add per group cost G adds a value
+//   and kept 128 registers a thread, so blocks of 512; a per-lane
+//   histogram in shared memory costs one read-add-write a value and lets a
+//   block run 1024 threads. Staging states through shared memory by bulk
+//   copy (cp.async.bulk on an mbarrier) measured no faster than the vector
+//   loads: each value is read by one lane once.
 // - Larger G (<= 512): shared-memory privatization of a tile of states
 //   (dynamic shared memory opted in up to 227 KB, so G = 512 fits 56 states
 //   and gid is read once). Lanes of a warp that share a group id are
@@ -36,43 +43,48 @@
 //   once a row and reused by every state); one shared atomicAdd per peer
 //   group, then one global atomicAdd per non-zero (state, group).
 // Integer addition mod 2^64 is order-free, so the result is bit-exact
-// whatever order the atomics land in. The output must be zeroed by the
-// caller.
+// whatever order the atomics land in.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Macro settings that kernel_ab.py --variants measures against each other.
 #ifndef GS_UNROLL
 #define GS_UNROLL 4  // 16-byte vector loads in flight per lane
 #endif
-#ifndef GS_BULK
-#define GS_BULK 0  // 1: items arrive by bulk copy into shared memory
-#endif
 #ifndef GS_HIST
-#define GS_HIST 0  // 1: accumulators in shared-memory histograms
+#define GS_HIST 1  // 1: SmemAcc, 0: RegAcc
 #endif
 #ifndef GS_THREADS
-#define GS_THREADS 512  // threads of a register-path block
+#define GS_THREADS 1024  // threads of a small-G block (halved at G > 8)
 #endif
-#ifndef GS_BLOCKS_PER_SM
-#define GS_BLOCKS_PER_SM 1
+#ifndef GS_ITEM_ROWS
+#define GS_ITEM_ROWS 1024  // rows of one work item
+#endif
+#ifndef GS_PREFETCH
+#define GS_PREFETCH 1  // 1: a chunk's states start for L2 before its gids
 #endif
 
 namespace {
 
 constexpr int kMaxStates = 64;
-constexpr int kSmallThreads = GS_THREADS;
-constexpr int kSmallBlocksPerSm = GS_BLOCKS_PER_SM;
 constexpr int kLargeThreads = 512;
-// rows of one work item; with GS_BULK a warp's two item buffers (values
-// at up to 8 bytes a row, then the mask) take 2 * kBufBytes of shared memory
-constexpr int kItemRows = GS_BULK ? 512 : 4096;
-constexpr int kBufBytes = kItemRows * 9;
-// with GS_HIST, each warp's two [GT][32] int64 histograms
-template <int GT>
-constexpr int kHistBytes = GS_HIST ? (kSmallThreads / 32) * 2 * GT * 32 * 8 : 0;
+constexpr int kItemRows = GS_ITEM_ROWS;
+constexpr int kChunkRows = 8192;  // gids staged at once (bytes)
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in ceiling on sm_90
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(kChunkRows % kItemRows == 0 && kItemRows % 16 == 0,
+              "items start on 16-row bounds");
+
+// threads of a small-G block: at G > 8 half, so the histograms fit
+constexpr int small_threads(int gt) {
+  return GS_HIST && gt > 8 ? GS_THREADS / 2 : GS_THREADS;
+}
+
+// shared memory of a small-G block: staged gids, then the histograms
+constexpr int small_smem(int gt) {
+  return kChunkRows + (GS_HIST ? small_threads(gt) / 32 * 2 * gt * 32 * 8 : 0);
+}
 
 // element kinds: how a state's bytes widen to int64
 enum Kind { kU8 = 0, kI8 = 1, kI16 = 2, kI32 = 3, kI64 = 4 };
@@ -92,20 +104,13 @@ __host__ __device__ __forceinline__ int kind_bytes(int kind) {
   return kind == kI64 ? 8 : kind == kI32 ? 4 : kind == kI16 ? 2 : 1;
 }
 
-// the register type of a BYTES-byte vector load
-template <int BYTES> struct Raw;
-template <> struct Raw<2> { using T = unsigned short; };
-template <> struct Raw<4> { using T = unsigned int; };
-template <> struct Raw<8> { using T = uint2; };
-template <> struct Raw<16> { using T = uint4; };
-
-// A lane's GT int64 accumulators (GT = G rounded up to a power of two; a
-// dead row's gid at or above G but below GT lands in one that is never
-// flushed). In registers: each value is added to acc[k] where gid == k,
-// GT predicated adds a value. With GS_HIST, in the warp's two shared-memory
-// histograms instead ([k][lane], one for even and one for odd elements of
-// a vector so that consecutive read-add-writes do not wait on each other):
-// one read-add-write a value, whatever GT.
+// A lane's GT int64 accumulators, GT = G rounded up to a power of two.
+// RegAcc: in registers, a predicated add for each group a value. SmemAcc:
+// in the warp's two shared-memory histograms [GT][32] (the lane's column;
+// one histogram for even and one for odd elements of a vector, so that
+// consecutive read-add-writes do not wait on each other), one
+// read-add-write a value whatever GT. A dead row (gid byte 0xFF) adds
+// nothing.
 template <int GT>
 struct RegAcc {
   static constexpr int kGroups = GT;
@@ -121,14 +126,16 @@ struct RegAcc {
       if (g == k) a[k] += x;
   }
   __device__ __forceinline__ long long take(int k) {
-    return a[k];  // k is a compile-time index at every call
+    const long long v = a[k];  // k is a compile-time index at every call
+    a[k] = 0;
+    return v;
   }
 };
 
 template <int GT>
 struct SmemAcc {
   static constexpr int kGroups = GT;
-  long long* __restrict__ h0;  // [GT][32] of this warp, at this lane
+  long long* __restrict__ h0;  // this warp's [GT][32], at this lane
   long long* __restrict__ h1;
   __device__ __forceinline__ void init(long long* warp_hist, int lane) {
     h0 = warp_hist + lane;
@@ -146,6 +153,13 @@ struct SmemAcc {
     return v;
   }
 };
+
+// the register type of a BYTES-byte vector load
+template <int BYTES> struct Raw;
+template <> struct Raw<2> { using T = unsigned short; };
+template <> struct Raw<4> { using T = unsigned int; };
+template <> struct Raw<8> { using T = uint2; };
+template <> struct Raw<16> { using T = uint4; };
 
 // `BYTES` bytes at p (aligned to BYTES) into the low bytes of a 16-byte
 // register vector: from global memory streamed past L1 (evict-first), or
@@ -194,111 +208,83 @@ __device__ __forceinline__ long long elem(const uint4& r) {
   }
 }
 
-// Byte E of a register vector, as 0 / 1.
+// Byte E of a register vector.
 template <int E>
-__device__ __forceinline__ bool byte_set(const uint4& r) {
-  return ((word<E / 4>(r) >> (8 * (E % 4))) & 0xffu) != 0;
+__device__ __forceinline__ int byte_of(const uint4& r) {
+  return (word<E / 4>(r) >> (8 * (E % 4))) & 0xff;
 }
 
+// Elements E.. of one vector: values x, mask bytes m, gid bytes g.
 template <typename T, int E, bool MASK, typename Acc>
 __device__ __forceinline__ void add_elems(const uint4& x, const uint4& m,
-                                          const int* g, Acc& acc) {
+                                          const uint4& g, Acc& acc) {
   if constexpr (E < 16 / (int)sizeof(T)) {
     const long long val = elem<T, E>(x);
-    acc.template add<E & 1>(g[E], (!MASK || byte_set<E>(m)) ? val : 0ll);
+    acc.template add<E & 1>(byte_of<E>(g),
+                            (!MASK || byte_of<E>(m)) ? val : 0ll);
     add_elems<T, E + 1, MASK>(x, m, g, acc);
   }
 }
 
-// VEC consecutive gids at p (aligned to 4*VEC bytes), through L1.
-template <int VEC>
-__device__ __forceinline__ void load_gids(const int* p, int (&g)[VEC]) {
-  if constexpr (VEC == 1) {
-    g[0] = __ldg(p);
-  } else if constexpr (VEC == 2) {
-    const int2 v = __ldg(reinterpret_cast<const int2*>(p));
-    g[0] = v.x;
-    g[1] = v.y;
-  } else {
-#pragma unroll
-    for (int q = 0; q < VEC / 4; ++q) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(p) + q);
-      g[4 * q] = v.x;
-      g[4 * q + 1] = v.y;
-      g[4 * q + 2] = v.z;
-      g[4 * q + 3] = v.w;
-    }
-  }
-}
-
 // One state over the `len` rows of an item into this lane's accumulators:
-// v and m point at the item's first value and mask byte (global or shared
-// memory), g0 at its first gid. Lane l takes vectors l, l + 32, ...;
-// `aligned` (v, m and g0 on 16-byte bounds) allows vector loads, else and
-// for the ragged tail the lane loads one row at a time.
-template <typename Acc, typename T, bool MASK, bool SMEM>
+// v and m point at the item's first value and mask byte, g8 at its first
+// staged gid byte. Lane l takes vectors l, l + 32, ...; `aligned` (v and m
+// on 16-byte bounds) allows vector loads, else, and for the ragged tail,
+// the lane loads one row at a time.
+template <typename Acc, typename T, bool MASK>
 __device__ __forceinline__ void accumulate(const T* __restrict__ v,
                                            const unsigned char* __restrict__ m,
-                                           const int* __restrict__ g0,
-                                           int len, bool aligned, int lane,
-                                           Acc& acc) {
+                                           const unsigned char* g8, int len,
+                                           bool aligned, int lane, Acc& acc) {
   constexpr int VEC = 16 / sizeof(T);
   int r = 0;
   if (aligned) {
     const int nv = len / VEC;  // whole vectors in the item
-    constexpr int kStep = 32 * GS_UNROLL;
-    for (int v0 = 0; v0 < nv; v0 += kStep) {
+    for (int v0 = 0; v0 < nv; v0 += 32 * GS_UNROLL) {
       uint4 x[GS_UNROLL];
       uint4 mk[GS_UNROLL];
 #pragma unroll
       for (int u = 0; u < GS_UNROLL; ++u) {
         const int k = v0 + u * 32 + lane;
         if (k < nv) {
-          x[u] = load_vec<16, SMEM>(v + k * VEC);
-          if (MASK) mk[u] = load_vec<VEC, SMEM>(m + k * VEC);
+          x[u] = load_vec<16, false>(v + k * VEC);
+          if (MASK) mk[u] = load_vec<VEC, false>(m + k * VEC);
         }
       }
 #pragma unroll
       for (int u = 0; u < GS_UNROLL; ++u) {
         const int k = v0 + u * 32 + lane;
-        if (k < nv) {
-          int g[VEC];
-          load_gids<VEC>(g0 + k * VEC, g);
-          add_elems<T, 0, MASK>(x[u], mk[u], g, acc);
-        }
+        if (k < nv)
+          add_elems<T, 0, MASK>(x[u], mk[u], load_vec<VEC, true>(g8 + k * VEC),
+                                acc);
       }
     }
     r = nv * VEC;
   }
   for (int i = r + lane; i < len; i += 32) {  // ragged tail, or unaligned
     const long long val = (long long)v[i];
-    acc.template add<0>(__ldg(g0 + i), (!MASK || m[i]) ? val : 0ll);
+    acc.template add<0>(g8[i], (!MASK || m[i]) ? val : 0ll);
   }
 }
 
-// One item of state st, rows [c0, c0 + len): from shared memory (vbuf,
-// mbuf: the item's values and mask as the bulk copy left them) or, with
-// vbuf null, from global memory.
-template <typename Acc, bool SMEM>
-__device__ __forceinline__ void accumulate_item(
-    const GsState& st, const void* vbuf, const unsigned char* mbuf,
-    const int* gid, int c0, int len, bool gid_aligned, int lane,
-    Acc& acc) {
+// One item of state st: rows [row0, row0 + len), gids staged at g8.
+template <typename Acc>
+__device__ __forceinline__ void accumulate_item(const GsState& st,
+                                                const unsigned char* g8,
+                                                int row0, int len, int lane,
+                                                Acc& acc) {
   const int w = kind_bytes(st.kind);
-  const void* v = SMEM ? vbuf
-                       : static_cast<const char*>(st.vals) + (long long)c0 * w;
-  const unsigned char* m = SMEM ? mbuf : (st.mask ? st.mask + c0 : nullptr);
-  const bool aligned = gid_aligned && (SMEM || ((uintptr_t)v % 16 == 0 &&
-                                                (uintptr_t)m % 16 == 0));
-  const int* g0 = gid + c0;
-#define GS_CASE(KIND, T)                                                    \
-  case KIND:                                                                \
-    if (st.mask)                                                            \
-      accumulate<Acc, T, true, SMEM>(static_cast<const T*>(v), m, g0, len,  \
-                                     aligned, lane, acc);                   \
-    else                                                                    \
-      accumulate<Acc, T, false, SMEM>(static_cast<const T*>(v), m, g0, len, \
-                                      aligned, lane, acc);                  \
+  const void* v = static_cast<const char*>(st.vals) + (long long)row0 * w;
+  const unsigned char* m = st.mask ? st.mask + row0 : nullptr;
+  const bool aligned = (uintptr_t)v % 16 == 0 && (uintptr_t)m % 16 == 0;
+#define GS_CASE(KIND, T)                                                   \
+  case KIND:                                                               \
+    if (st.mask)                                                           \
+      accumulate<Acc, T, true>(static_cast<const T*>(v), m, g8, len,       \
+                               aligned, lane, acc);                        \
+    else                                                                   \
+      accumulate<Acc, T, false>(static_cast<const T*>(v), m, g8, len,      \
+                                aligned, lane, acc);                       \
     break;
   switch (st.kind) {
     GS_CASE(kU8, unsigned char)
@@ -309,6 +295,17 @@ __device__ __forceinline__ void accumulate_item(
     GS_CASE(kI64, long long)
   }
 #undef GS_CASE
+}
+
+// Ask for the 16-byte-aligned interior of [p, p + bytes) to be brought
+// into L2 (one bulk prefetch; no register or shared memory is spent).
+__device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
+  const uintptr_t lo = ((uintptr_t)p + 15) & ~(uintptr_t)15;
+  const uintptr_t hi = ((uintptr_t)p + bytes) & ~(uintptr_t)15;
+  if (hi > lo)
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(lo),
+                 "r"((unsigned)(hi - lo))
+                 : "memory");
 }
 
 // Reduce a warp's accumulators and add them to out[st.out, :G].
@@ -327,156 +324,56 @@ __device__ __forceinline__ void flush(Acc& acc, const GsState& st,
   }
 }
 
-#if GS_BULK
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "GS_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra GS_WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// 1-D bulk copy global -> shared, completing `bytes` on bar.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Whether an item can come by bulk copy: 16-byte aligned source, a size
-// that is a multiple of 16 (c0 is a multiple of 16 rows).
-__device__ __forceinline__ bool bulk_ok(const GsState& st, int c0, int len) {
-  const long long vb = (long long)c0 * kind_bytes(st.kind);
-  return len % 16 == 0 &&
-         ((uintptr_t)st.vals + vb) % 16 == 0 &&
-         (st.mask == nullptr || ((uintptr_t)st.mask + c0) % 16 == 0);
-}
-
-// Lane 0 starts the copy of one item (values, then mask) into buf.
-__device__ __forceinline__ void bulk_issue(const GsState& st, int c0, int len,
-                                           unsigned char* buf,
-                                           uint64_t* bar) {
-  const int w = kind_bytes(st.kind);
-  const int vbytes = len * w;
-  const int mbytes = st.mask ? len : 0;
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(vbytes + mbytes)
-      : "memory");
-  bulk_copy(buf, static_cast<const char*>(st.vals) + (long long)c0 * w, vbytes,
-            bar);
-  if (mbytes) bulk_copy(buf + kItemRows * 8, st.mask + c0, mbytes, bar);
-}
-#endif
-
-// A work item is (chunk of kItemRows rows, state); warp w takes items w,
-// w + nwarps, ... of its block's row range. With GS_BULK each warp double
-// buffers: while it sums one item from shared memory, the bulk copy of its
-// next item is in flight.
 template <int GT>
-__global__ void __launch_bounds__(kSmallThreads, kSmallBlocksPerSm)
+__global__ void __launch_bounds__(small_threads(GT), 1)
     grouped_sums_small(const int* __restrict__ gid,
                        __grid_constant__ const GsTable tab, int S,
                        unsigned long long* __restrict__ out, int n, int G,
                        int rows_per_block) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* g8 = smem;  // [kChunkRows] staged gid bytes
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+#if GS_HIST
+  SmemAcc<GT> acc;
+  acc.init(reinterpret_cast<long long*>(smem + kChunkRows) +
+               warp * 2 * GT * 32, lane);
+#else
+  RegAcc<GT> acc;
+  acc.init(nullptr, lane);
+#endif
   const int r0 = blockIdx.x * rows_per_block;  // a multiple of 16
   const int r1 = min(n, r0 + rows_per_block);
-  const int nchunks = r0 < r1 ? (r1 - r0 + kItemRows - 1) / kItemRows : 0;
-  const int items = nchunks * S;
-  const bool gid_aligned = (uintptr_t)gid % 16 == 0;
-  extern __shared__ __align__(128) unsigned char smem[];
-#if GS_HIST
-  using Acc = SmemAcc<GT>;
-  long long* hist = reinterpret_cast<long long*>(smem);  // [warps][2][GT][32]
-  Acc acc;
-  acc.init(hist + warp * 2 * GT * 32, lane);
-#else
-  using Acc = RegAcc<GT>;
-  Acc acc;
-#endif
-#if GS_BULK
-  __shared__ uint64_t bars[kSmallThreads / 32][2];
-  // the bulk buffers follow the histograms, if any
-  unsigned char* bufs[2] = {smem + kHistBytes<GT> + (2 * warp) * kBufBytes,
-                            smem + kHistBytes<GT> + (2 * warp + 1) * kBufBytes};
-  if (lane == 0) {
-    mbar_init(&bars[warp][0]);
-    mbar_init(&bars[warp][1]);
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  __syncthreads();
-  uint32_t parity[2] = {0u, 0u};
-  auto item_rows = [&](int item, int& c0, int& len) {
-    c0 = r0 + (item / S) * kItemRows;
-    len = min(r1, c0 + kItemRows) - c0;
-  };
-  int c0, len;
-  if (warp < items) {
-    item_rows(warp, c0, len);
-    const GsState& st = tab.s[warp % S];
-    if (lane == 0 && bulk_ok(st, c0, len))
-      bulk_issue(st, c0, len, bufs[0], &bars[warp][0]);
-  }
-  for (int item = warp, j = 0; item < items; item += nwarps, ++j) {
-    const int next = item + nwarps;
-    if (next < items) {  // start the next item's copy into the other buffer
-      int nc0, nlen;
-      item_rows(next, nc0, nlen);
-      const GsState& nst = tab.s[next % S];
-      if (lane == 0 && bulk_ok(nst, nc0, nlen))
-        bulk_issue(nst, nc0, nlen, bufs[(j + 1) & 1], &bars[warp][(j + 1) & 1]);
+  for (int c0 = r0; c0 < r1; c0 += kChunkRows) {
+    const int len = min(r1, c0 + kChunkRows) - c0;
+    const int items = (len + kItemRows - 1) / kItemRows * S;
+#if GS_PREFETCH
+    // the states' bytes of this chunk head for L2 while the gids are staged
+    for (int item = threadIdx.x; item < items; item += blockDim.x) {
+      const int i0 = item / S * kItemRows;
+      const int rows = min(len - i0, kItemRows);
+      const GsState& st = tab.s[item % S];
+      const int w = kind_bytes(st.kind);
+      prefetch_l2(static_cast<const char*>(st.vals) + (long long)(c0 + i0) * w,
+                  (long long)rows * w);
+      if (st.mask) prefetch_l2(st.mask + c0 + i0, rows);
     }
-    item_rows(item, c0, len);
-    const GsState& st = tab.s[item % S];
-#if !GS_HIST
-    acc.init(nullptr, lane);
 #endif
-    const int b = j & 1;
-    if (bulk_ok(st, c0, len)) {
-      mbar_wait(&bars[warp][b], parity[b]);
-      parity[b] ^= 1u;
-      accumulate_item<Acc, true>(st, bufs[b], bufs[b] + kItemRows * 8, gid,
-                                 c0, len, gid_aligned, lane, acc);
-    } else {
-      accumulate_item<Acc, false>(st, nullptr, nullptr, gid, c0, len,
-                                  gid_aligned, lane, acc);
+    __syncthreads();  // the previous chunk's items are done with g8
+    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+      const int g = gid[c0 + i];
+      g8[i] = (unsigned)g < (unsigned)G ? (unsigned char)g : 0xff;
     }
-    __syncwarp();  // every lane is done with buffer b before it is refilled
-    flush(acc, st, out, G, lane);
+    __syncthreads();
+    for (int item = warp; item < items; item += nwarps) {
+      const int i0 = item / S * kItemRows;
+      const GsState& st = tab.s[item % S];
+      accumulate_item(st, g8 + i0, c0 + i0, min(len - i0, kItemRows), lane,
+                      acc);
+      flush(acc, st, out, G, lane);
+    }
   }
-#else
-  for (int item = warp; item < items; item += nwarps) {
-#if !GS_HIST
-    acc.init(nullptr, lane);
-#endif
-    const int c0 = r0 + (item / S) * kItemRows;
-    const int len = min(r1, c0 + kItemRows) - c0;
-    const GsState& st = tab.s[item % S];
-    accumulate_item<Acc, false>(st, nullptr, nullptr, gid, c0, len,
-                                gid_aligned, lane, acc);
-    flush(acc, st, out, G, lane);
-  }
-#endif
 }
 
 __device__ __forceinline__ long long load_state(const GsState& st, long long i) {
@@ -563,24 +460,23 @@ template <int GT>
 cudaError_t launch_small(const int* gid, const GsTable& tab, int S,
                          unsigned long long* out, int n, int G,
                          cudaStream_t stream) {
-  const size_t smem = (GS_BULK ? (size_t)2 * (kSmallThreads / 32) * kBufBytes
-                               : 0) + kHistBytes<GT>;
+  constexpr int smem = small_smem(GT);
   static bool opted_in = false;
   if (smem > 48 * 1024 && !opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
         grouped_sums_small<GT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        smem);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  int blocks = sm_count() * kSmallBlocksPerSm;
+  int blocks = sm_count();
   const int min_rows = 256;
   if (blocks > (n + min_rows - 1) / min_rows)
     blocks = (n + min_rows - 1) / min_rows;
   if (blocks < 1) blocks = 1;
   int rows = (n + blocks - 1) / blocks;
   rows = (rows + 15) / 16 * 16;  // items start on 16-row (16-byte) bounds
-  grouped_sums_small<GT><<<blocks, kSmallThreads, smem, stream>>>(
+  grouped_sums_small<GT><<<blocks, small_threads(GT), smem, stream>>>(
       gid, tab, S, out, n, G, rows);
   return cudaGetLastError();
 }
