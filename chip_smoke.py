@@ -730,8 +730,6 @@ def _rc(err, what):
 
 
 def _bare_grouped_sums(torch, lib, sp, gid, states, g):
-    import ctypes
-
     from presto_tpu_torch.ops import groupby_kernels as gk
 
     n = gid.shape[0]
@@ -739,7 +737,7 @@ def _bare_grouped_sums(torch, lib, sp, gid, states, g):
     out = torch.zeros(len(states), g, dtype=torch.int64, device=gid.device)
 
     # each call keeps its descriptor array alive beside the arguments
-    calls = [(arr, (gid.data_ptr(), ctypes.addressof(arr), len(plan.states),
+    calls = [(arr, (gid.data_ptr(), arr.buffer_info()[0], len(plan.states),
                     out.data_ptr(), 0, n, g, plan.groups_tile,
                     plan.states_tile, sp))
              for plan, arr in tables]
@@ -797,7 +795,7 @@ def _bare_join_probe(torch, lib, sp, slot0, pkeys, plive, slot_row, bkeys, f):
 
     args = (slot0.data_ptr(), pkeys.data_ptr(), plive.data_ptr(),
             slot_row.data_ptr(), bkeys.data_ptr(), mm.data_ptr(),
-            cnt.data_ptr(), stat.data_ptr(), n, k, bkeys.shape[1],
+            cnt.data_ptr(), stat.data_ptr(), 0, n, k, bkeys.shape[1],
             slot_row.shape[0], f, sp)
 
     def launch():

@@ -20,7 +20,6 @@ of each after checking its result against the default build.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import importlib.util
 import json
 import os
@@ -30,14 +29,13 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # macro settings of csrc/ tried by --variants (defaults: GS_HIST=1,
-# GS_THREADS=1024, GS_UNROLL=4, GS_ITEM_ROWS=1024, GS_PREFETCH=1,
-# JP_ROWS=2, JP_THREADS=128, JP_CG=0)
+# GS_THREADS=1024, GS_UNROLL=4, GS_ITEM_ROWS=1024, JP_ROWS=2,
+# JP_THREADS=128, JP_CG=0)
 VARIANTS = {
-    "grouped_sums": [("GS_PREFETCH=0",), ("GS_UNROLL=2",),
-                     ("GS_UNROLL=2", "GS_PREFETCH=0"), ("GS_ITEM_ROWS=2048",),
+    "grouped_sums": [("GS_ITEM_ROWS=512",), ("GS_UNROLL=2",),
                      ("GS_THREADS=512",), ("GS_HIST=0", "GS_THREADS=512")],
-    "hash_table": [("JP_ROWS=1",), ("JP_ROWS=2",), ("JP_ROWS=4",),
-                   ("JP_ROWS=2", "JP_CG=1"), ("JP_ROWS=2", "JP_THREADS=256")],
+    "hash_table": [("JP_ROWS=1",), ("JP_ROWS=4",), ("JP_ROWS=2", "JP_CG=1"),
+                   ("JP_ROWS=2", "JP_THREADS=256")],
 }
 
 
@@ -58,6 +56,43 @@ def _wide(torch, state):
     return state.to(torch.int64)
 
 
+def _pr1_grouped_sums(torch, cs, lib, sp, gid, states, g):
+    """PR 1's bare launch: the states stacked as int64 [S, n] (untimed),
+    checked once against the plain version."""
+    from presto_tpu_torch.ops import groupby_kernels as gk
+
+    vals = torch.stack([_wide(torch, s) for s in states])
+    out = torch.zeros(len(states), g, dtype=torch.int64, device=gid.device)
+    args = (gid.data_ptr(), vals.data_ptr(), out.data_ptr(), gid.shape[0],
+            len(states), g, sp)
+
+    def launch():
+        cs._rc(lib.grouped_sums_launch(*args), "grouped_sums")
+    launch()
+    cs.require(torch.equal(out, gk.grouped_sums_plain(gid, vals, g)),
+               "PR 1 grouped_sums: bare launch differs from plain")
+    return launch, vals
+
+
+def _pr1_join_probe(torch, cs, lib, sp, slot0, pkeys, plive, slot_row, bkeys,
+                    f):
+    """PR 1's bare launch (its caller fills mm with -1 and zeroes stat;
+    neither is timed)."""
+    k, n = pkeys.shape
+    dev = slot0.device
+    mm = torch.full((n, f), -1, dtype=torch.int32, device=dev)
+    cnt = torch.empty(n, dtype=torch.int32, device=dev)
+    stat = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (slot0.data_ptr(), pkeys.data_ptr(), plive.data_ptr(),
+            slot_row.data_ptr(), bkeys.data_ptr(), mm.data_ptr(),
+            cnt.data_ptr(), stat.data_ptr(), n, k, bkeys.shape[1],
+            slot_row.shape[0], f, sp)
+
+    def launch():
+        cs._rc(lib.join_probe_launch(*args), "join_probe")
+    return launch
+
+
 def time_root(torch, cs, inputs, flush):
     """kernel → {ms_warm, ms_cold, launcher_ms, wrapper_ms} for the
     package on sys.path."""
@@ -65,43 +100,37 @@ def time_root(torch, cs, inputs, flush):
     from presto_tpu_torch.ops import groupby_kernels as gk
     from presto_tpu_torch.ops import hash_kernels as hk
 
-    dev = torch.device("cuda")
-    sp = stream_ptr(dev)
-    out = {}
-    gid, states, g = inputs["grouped_sums"][1]
-    if hasattr(gk, "state_tables"):  # states by pointer
-        bare = cs._bare_grouped_sums(torch, library("grouped_sums"), sp,
-                                     gid, states, g)[0]
-        launcher = lambda: gk._grouped_sums_cuda(gid, states, g)  # noqa
-        wrapper = lambda: gk.grouped_sums(gid, states, g)  # noqa
-    else:  # PR 1: one int64 [S, n] tensor
-        wide = [_wide(torch, s) for s in states]
-        vals = torch.stack(wide)
-        o = torch.zeros(len(states), g, dtype=torch.int64, device=dev)
-        lib = library("grouped_sums")
-        n = gid.shape[0]
-
-        args = (gid.data_ptr(), vals.data_ptr(), o.data_ptr(), n,
-                len(states), g, sp)
-
-        def bare():
-            cs._rc(lib.grouped_sums_launch(*args), "grouped_sums")
-        launcher = lambda: gk._grouped_sums_cuda(gid, vals, g)  # noqa
-        wrapper = lambda: gk.grouped_sums(gid, wide, g)  # noqa
-    out["grouped_sums"] = (bare, launcher, wrapper)
-
+    sp = stream_ptr(torch.device("cuda"))
+    gin = inputs["grouped_sums"][1]
     jin = inputs["join_probe"][1]
-    out["join_probe"] = (
-        cs._bare_join_probe(torch, library("hash_table"), sp, *jin)[0],
-        lambda: hk._join_probe_cuda(*jin), lambda: hk.join_probe(*jin))
+    gsl, htl = library("grouped_sums"), library("hash_table")
+    if hasattr(gk, "state_tables"):  # states by pointer
+        out = {"grouped_sums": (
+            cs._bare_grouped_sums(torch, gsl, sp, *gin)[0],
+            lambda: gk._grouped_sums_cuda(*gin),
+            lambda: gk.grouped_sums(*gin))}
+    else:  # PR 1: one int64 [S, n] tensor
+        bare, vals = _pr1_grouped_sums(torch, cs, gsl, sp, *gin)
+        gid, states, g = gin
+        wide = list(vals)
+        out = {"grouped_sums": (
+            bare, lambda: gk._grouped_sums_cuda(gid, vals, g),
+            lambda: gk.grouped_sums(gid, wide, g))}
+    if len(htl.join_probe_launch.argtypes) == 15:  # with zero_stat
+        jp = cs._bare_join_probe(torch, htl, sp, *jin)[0]
+    else:
+        jp = _pr1_join_probe(torch, cs, htl, sp, *jin)
+    out["join_probe"] = (jp, lambda: hk._join_probe_cuda(*jin),
+                         lambda: hk.join_probe(*jin))
 
-    rows = yardsticks(torch, cs, inputs, flush)
+    rows = {}
     for name, (bare, launcher, wrapper) in out.items():
         rows[name] = {
             "ms_cold": cs.kernel_alone_ms(torch, bare, flush=flush),
             "ms_warm": cs.kernel_alone_ms(torch, bare),
             "launcher_ms": cs.cuda_ms(torch, launcher),
             "wrapper_ms": cs.cuda_ms(torch, wrapper)}
+    rows.update(yardsticks(torch, cs, inputs, flush))
     return rows
 
 
@@ -173,7 +202,7 @@ def _one_grouped_sums(torch, gk, lib, gid, states, g):
     out = torch.zeros(len(states), g, dtype=torch.int64, device=gid.device)
     for plan, arr in tables:
         r = lib.grouped_sums_launch(
-            gid.data_ptr(), ctypes.addressof(arr), len(plan.states),
+            gid.data_ptr(), arr.buffer_info()[0], len(plan.states),
             out.data_ptr(), 0, gid.shape[0], g, plan.groups_tile,
             plan.states_tile, stream_ptr(gid.device))
         assert r == 0, r
@@ -191,8 +220,8 @@ def _one_join_probe(torch, lib, pslot, pkeys, plive, sr, bkeys, f):
     stat = torch.zeros(1, dtype=torch.int32, device=dev)
     r = lib.join_probe_launch(
         pslot.data_ptr(), pkeys.data_ptr(), plive.data_ptr(), sr.data_ptr(),
-        bkeys.data_ptr(), mm.data_ptr(), cnt.data_ptr(), stat.data_ptr(), n,
-        k, bkeys.shape[1], sr.shape[0], f, stream_ptr(dev))
+        bkeys.data_ptr(), mm.data_ptr(), cnt.data_ptr(), stat.data_ptr(), 1,
+        n, k, bkeys.shape[1], sr.shape[0], f, stream_ptr(dev))
     assert r == 0, r
     torch.cuda.synchronize()
     return mm, cnt, stat[0]

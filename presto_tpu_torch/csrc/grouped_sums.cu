@@ -17,10 +17,7 @@
 // - Small G (G <= 16): a persistent grid of one block per SM; each block
 //   owns one contiguous row range. It stages the gids of up to kChunkRows
 //   rows in shared memory once, as bytes (0xFF for a dead row), for every
-//   state to reuse; before that, every thread asks for a few of the
-//   chunk's state ranges to be brought into L2 (cp.async.bulk.prefetch),
-//   so that the values are on their way while the gids arrive. A work
-//   item is (kItemRows rows, state); the warps take
+//   state to reuse. A work item is (kItemRows rows, state); the warps take
 //   items round-robin, heaviest states first (the caller orders the table
 //   by width). A lane streams its rows of the state with 16-byte vector
 //   loads, GS_UNROLL of them in flight, evict-first, and adds each value to
@@ -60,9 +57,6 @@
 #endif
 #ifndef GS_ITEM_ROWS
 #define GS_ITEM_ROWS 1024  // rows of one work item
-#endif
-#ifndef GS_PREFETCH
-#define GS_PREFETCH 1  // 1: a chunk's states start for L2 before its gids
 #endif
 
 namespace {
@@ -297,17 +291,6 @@ __device__ __forceinline__ void accumulate_item(const GsState& st,
 #undef GS_CASE
 }
 
-// Ask for the 16-byte-aligned interior of [p, p + bytes) to be brought
-// into L2 (one bulk prefetch; no register or shared memory is spent).
-__device__ __forceinline__ void prefetch_l2(const void* p, long long bytes) {
-  const uintptr_t lo = ((uintptr_t)p + 15) & ~(uintptr_t)15;
-  const uintptr_t hi = ((uintptr_t)p + bytes) & ~(uintptr_t)15;
-  if (hi > lo)
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(lo),
-                 "r"((unsigned)(hi - lo))
-                 : "memory");
-}
-
 // Reduce a warp's accumulators and add them to out[st.out, :G].
 template <typename Acc>
 __device__ __forceinline__ void flush(Acc& acc, const GsState& st,
@@ -348,18 +331,6 @@ __global__ void __launch_bounds__(small_threads(GT), 1)
   for (int c0 = r0; c0 < r1; c0 += kChunkRows) {
     const int len = min(r1, c0 + kChunkRows) - c0;
     const int items = (len + kItemRows - 1) / kItemRows * S;
-#if GS_PREFETCH
-    // the states' bytes of this chunk head for L2 while the gids are staged
-    for (int item = threadIdx.x; item < items; item += blockDim.x) {
-      const int i0 = item / S * kItemRows;
-      const int rows = min(len - i0, kItemRows);
-      const GsState& st = tab.s[item % S];
-      const int w = kind_bytes(st.kind);
-      prefetch_l2(static_cast<const char*>(st.vals) + (long long)(c0 + i0) * w,
-                  (long long)rows * w);
-      if (st.mask) prefetch_l2(st.mask + c0 + i0, rows);
-    }
-#endif
     __syncthreads();  // the previous chunk's items are done with g8
     for (int i = threadIdx.x; i < len; i += blockDim.x) {
       const int g = gid[c0 + i];

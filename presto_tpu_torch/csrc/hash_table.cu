@@ -326,16 +326,21 @@ extern "C" int join_insert_launch(const void* slot0, const void* live,
 
 // slot0 int32[n]; pkeys int64[K, n]; plive bool[n]; slot_row int32[tcap];
 // bkeys int64[K, cap_b] -> mm int32[n, F] and cnt int32[n], every entry
-// written (no fill needed; mm 16-byte aligned); stat int32[1], zeroed here
-// first: rows with more than F matches.
+// written (no fill needed; mm 16-byte aligned); stat int32[1]: rows with
+// more than F matches, zeroed here first when zero_stat is set.
 extern "C" int join_probe_launch(const void* slot0, const void* pkeys,
                                  const void* plive, const void* slot_row,
                                  const void* bkeys, void* mm, void* cnt,
-                                 void* stat, int n, int K, long long cap_b,
-                                 int tcap, int F, void* stream) {
+                                 void* stat, int zero_stat, int n, int K,
+                                 long long cap_b, int tcap, int F,
+                                 void* stream) {
   if (K < 1 || F < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(stat, 0, sizeof(int), (cudaStream_t)stream);
-  if (e != cudaSuccess || n <= 0) return (int)e;
+  if (zero_stat) {
+    cudaError_t e =
+        cudaMemsetAsync(stat, 0, sizeof(int), (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n <= 0) return 0;
   auto go = [&](auto ft) {
     return (int)launch_probe<decltype(ft)::value>(
         (const int*)slot0, (const long long*)pkeys, (const bool*)plive,

@@ -39,7 +39,7 @@ SIGNATURES = {
                                 _I, _I, _I, _P],
         "join_insert_launch": [_P, _P, _P, _I, _I, _P],
         "join_probe_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _L, _I, _I, _P],
+                              _I, _I, _I, _L, _I, _I, _P],
     },
 }
 

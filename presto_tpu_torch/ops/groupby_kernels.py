@@ -14,7 +14,8 @@ nothing is stacked or widened first.
 
 from __future__ import annotations
 
-import ctypes
+import array
+import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -28,9 +29,10 @@ SMALL_GROUPS = 16  # up to here, accumulators live in registers
 SMEM_BYTES = 232448  # dynamic shared memory a block may opt in to (227 KB)
 
 # element kind of each state dtype in the kernel's descriptor (how its
-# bytes widen to int64: zero-extended for bool/uint8, else sign-extended)
-KINDS = {torch.bool: 0, torch.uint8: 0, torch.int8: 1, torch.int16: 2,
-         torch.int32: 3, torch.int64: 4}
+# bytes widen to int64: zero-extended for bool/uint8, else sign-extended),
+# and its width in bytes
+KINDS = {torch.bool: (0, 1), torch.uint8: (0, 1), torch.int8: (1, 1),
+         torch.int16: (2, 2), torch.int32: (3, 4), torch.int64: (4, 8)}
 
 State = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -44,7 +46,8 @@ class Launch(NamedTuple):
     states_tile: int  # states per shared-memory tile on "shared", else 0
 
 
-def launch_plan(widths: Sequence[int], n_groups: int) -> List[Launch]:
+@functools.lru_cache(maxsize=256)
+def launch_plan(widths: Tuple[int, ...], n_groups: int) -> List[Launch]:
     """How `grouped_sums` splits its states into launches on the card:
     states ordered by element width, widest first (the register path hands
     work to warps in table order, heaviest first), in tables of at most
@@ -98,34 +101,37 @@ def state_tables(gid: torch.Tensor, int_states: Sequence[State],
     """Check the states against the kernel's contract and lay out one
     descriptor table per launch of `launch_plan`: per state its values'
     and mask's device pointers and (output row << 32 | element kind), as
-    csrc/grouped_sums.cu's GsStateHost. Returns [(Launch, ctypes array)]
+    csrc/grouped_sums.cu's GsStateHost. Returns [(Launch, int64 array)]
     and the tensors the tables point into (the caller keeps them alive up
     to the launch)."""
-    n, dev = gid.shape[0], gid.device
-    parts, widths = [], []
+    shape, dev = gid.shape, gid.get_device()
+    parts, kinds, widths = [], [], []
     for state in int_states:
         v, m = _split(state)
-        if v.dtype not in KINDS:
+        kind, width = KINDS.get(v.dtype, (None, 0))
+        if kind is None:
             raise ValueError(f"grouped_sums: state dtype {v.dtype} is not "
                              f"one of {sorted(map(str, KINDS))}")
         for t in (v,) if m is None else (v, m):
-            if t.device != dev or t.shape != (n,):
+            if t.shape != shape or t.get_device() != dev:
                 raise ValueError("grouped_sums: every state and mask must be "
                                  "an [n] tensor on gid's device")
         if m is not None:
             if m.dtype != torch.bool:
                 raise ValueError("grouped_sums: a state's mask must be bool")
-            m = m.contiguous()
-        parts.append((v.contiguous(), m))
-        widths.append(v.element_size())
+            if not m.is_contiguous():
+                m = m.contiguous()
+        parts.append((v if v.is_contiguous() else v.contiguous(), m))
+        kinds.append(kind)
+        widths.append(width)
     tables = []
-    for plan in launch_plan(widths, n_groups):
-        flat = []
+    for plan in launch_plan(tuple(widths), n_groups):
+        flat = array.array("q")
         for i in plan.states:
             v, m = parts[i]
-            flat += (v.data_ptr(), 0 if m is None else m.data_ptr(),
-                     i << 32 | KINDS[v.dtype])
-        tables.append((plan, (ctypes.c_int64 * len(flat))(*flat)))
+            flat.extend((v.data_ptr(), 0 if m is None else m.data_ptr(),
+                         i << 32 | kinds[i]))
+        tables.append((plan, flat))
     return tables, parts
 
 
@@ -141,7 +147,7 @@ def _grouped_sums_cuda(gid: torch.Tensor, int_states: Sequence[State],
     for plan, arr in tables:
         grouped_sums.launches += 1
         check(lib.grouped_sums_launch(
-            gid.data_ptr(), ctypes.addressof(arr), len(plan.states),
+            gid.data_ptr(), arr.buffer_info()[0], len(plan.states),
             out.data_ptr(), zero_rows, gid.shape[0], n_groups,
             plan.groups_tile, plan.states_tile, stream), "grouped_sums")
         zero_rows = 0

@@ -303,7 +303,7 @@ def _join_probe_cuda(slot0, pkeys, plive, slot_row, bkeys, fanout: int):
     check(lib.join_probe_launch(
         slot0.data_ptr(), pkeys.data_ptr(), plive.data_ptr(),
         slot_row.data_ptr(), bkeys.data_ptr(), mm.data_ptr(), cnt.data_ptr(),
-        stat.data_ptr(), n, k, bkeys.shape[1], slot_row.shape[0], fanout,
+        stat.data_ptr(), 1, n, k, bkeys.shape[1], slot_row.shape[0], fanout,
         stream_ptr(dev)), "join_probe")
     return mm, cnt, stat[0]
 

@@ -130,12 +130,12 @@ def test_grouped_sums_widths_masks_and_edges(n, g, count, dead):
                       (tuple(range(58, 70, 2)), "registers", 8, 0)]),
 ])
 def test_grouped_sums_launch_plan(widths, g, want):
-    assert [tuple(p) for p in gk.launch_plan(widths, g)] == want
+    assert [tuple(p) for p in gk.launch_plan(tuple(widths), g)] == want
 
 
 def test_grouped_sums_launch_plan_rejects_too_many_groups():
     with pytest.raises(ValueError):
-        gk.launch_plan([8], gk.MAX_GROUPS + 1)
+        gk.launch_plan((8,), gk.MAX_GROUPS + 1)
 
 
 # ---------------------------------------------------------------------------
