@@ -746,7 +746,7 @@ def _bare_grouped_sums(torch, lib, sp, gid, states, g):
         for _arr, args in calls:
             _rc(lib.grouped_sums_launch(*args), "grouped_sums")
     return (launch, None, distinct_bytes(gid, *_tensors(parts))
-            + out.numel() * 8, f"n={n} S={len(states)} G={g}")
+            + out.numel() * 8, f"n={n} S={len(states)} G={g}", out)
 
 
 def _bare_group_insert(torch, lib, sp, planes, slot0, live, cap):
@@ -770,7 +770,8 @@ def _bare_group_insert(torch, lib, sp, planes, slot0, live, cap):
     def launch():
         _rc(lib.group_insert_launch(*args), "group_insert")
     return (launch, prep, distinct_bytes(planes, slot0, live) + n * 4
-            + k * tcap * 8 + tcap * 4 + 8, f"n={n} K={k} cap={cap}")
+            + k * tcap * 8 + tcap * 4 + 8, f"n={n} K={k} cap={cap}",
+            (gid, table, occ, stat))
 
 
 def _bare_join_insert(torch, lib, sp, slot0, live, tcap):
@@ -783,7 +784,8 @@ def _bare_join_insert(torch, lib, sp, slot0, live, tcap):
     def launch():
         _rc(lib.join_insert_launch(*args), "join_insert")
     return (launch, lambda: slot_row.fill_(-1),
-            distinct_bytes(slot0, live) + tcap * 4, f"n={n} tcap={tcap}")
+            distinct_bytes(slot0, live) + tcap * 4, f"n={n} tcap={tcap}",
+            slot_row)
 
 
 def _bare_join_probe(torch, lib, sp, slot0, pkeys, plive, slot_row, bkeys, f):
@@ -803,20 +805,18 @@ def _bare_join_probe(torch, lib, sp, slot0, pkeys, plive, slot_row, bkeys, f):
     return (launch, None, distinct_bytes(slot0, pkeys, plive, slot_row, bkeys)
             + n * f * 4 + n * 4 + 4,
             f"n={n} K={k} F={f} build={bkeys.shape[1]} "
-            f"tcap={slot_row.shape[0]}")
+            f"tcap={slot_row.shape[0]}", (mm, cnt, stat))
 
 
-def bare_launches(torch, inputs, libs=None):
-    """name → (launch, prep, bytes, shape): the bare `lib.*_launch` call of
-    each kernel on the largest inputs the query phase handed its launcher,
-    with outputs allocated once; `prep` resets the outputs a kernel must
-    find empty; bytes are the distinct inputs read once plus the outputs
-    written once. `libs` may name other builds of the sources."""
+def bare_launches(torch, inputs):
+    """name → (launch, prep, bytes, shape, outputs): the bare
+    `lib.*_launch` call of each kernel on the largest inputs the query
+    phase handed its launcher, with outputs allocated once; `prep` resets
+    the outputs a kernel must find empty; bytes are the distinct inputs
+    read once plus the outputs written once."""
     from presto_tpu_torch.kernels._build import library, stream_ptr
 
-    libs = libs or {}
-    gsl = libs.get("grouped_sums") or library("grouped_sums")
-    htl = libs.get("hash_table") or library("hash_table")
+    gsl, htl = library("grouped_sums"), library("hash_table")
     sp = stream_ptr(torch.device("cuda"))
     return {
         "grouped_sums": _bare_grouped_sums(torch, gsl, sp,
@@ -866,7 +866,7 @@ def phase_timing(torch, inputs, errs):
           f"{flush_ms:.4f} ms, outside the events of the cold launches")
     bare = bare_launches(torch, inputs)
     rows = {}
-    for name, (launch, prep, b, shape) in bare.items():
+    for name, (launch, prep, b, shape, _outs) in bare.items():
         warm = kernel_alone_ms(torch, launch, prep)
         cold = (kernel_alone_ms(torch, launch, prep, flush)
                 if b < L2_BYTES else None)
@@ -888,7 +888,7 @@ def phase_timing(torch, inputs, errs):
         len(states), g + 1, dtype=torch.int64, device=gid.device)
         .index_add_(1, idx, vals))
     n = gid.shape[0]
-    r["pr1_bytes"] = n * (4 + 8 * len(states)) + len(states) * g * 8
+    r["stacked_bytes"] = n * (4 + 8 * len(states)) + len(states) * g * 8
     errs["grouped_sums"] = max(errs["grouped_sums"],
                                check_grouped_sums(torch, gid, states, g))
 
@@ -938,15 +938,15 @@ def phase_timing(torch, inputs, errs):
               f"bound {r['bound']:.5f} ms ({r['bytes']} bytes)"
               + ("" if r["library"] is None
                  else f"; index_add_ {r['library']:.4f} ms")
-              + ("" if "pr1_bytes" not in r else
+              + ("" if "stacked_bytes" not in r else
                  f"; bound with the states stacked as int64 "
-                 f"{r['pr1_bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms "
-                 f"({r['pr1_bytes']} bytes)"))
-        if r["ms_cold"] is not None:
-            require(r["ms_cold"] >= r["bound"],
-                    f"{name}: cold kernel-alone time {r['ms_cold']:.5f} ms "
-                    f"beats its byte bound {r['bound']:.5f} ms: the L2 flush "
-                    f"did not take")
+                 f"{r['stacked_bytes'] / HBM_BYTES_PER_S * 1e3:.5f} ms "
+                 f"({r['stacked_bytes']} bytes)"))
+        for what in ("ms_cold", "ms_warm"):
+            if r[what] is not None:
+                require(r[what] >= r["bound"],
+                        f"{name}: kernel-alone time {what} {r[what]:.5f} ms "
+                        f"beats its byte bound {r['bound']:.5f} ms")
     return rows
 
 

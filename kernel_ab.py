@@ -7,11 +7,12 @@ macro settings) compare on the same card and the same data.
     python3 kernel_ab.py --root DIR --inputs IN.pt [--variants]
 
 --root names the checkout whose presto_tpu_torch is timed (the parent
-commit unpacked with `git archive`, or this one). Both the PR 1 interface
-of grouped_sums (states stacked as int64 [S, n]) and the current one
-(states by pointer) are understood. For each kernel it prints one JSON
-line: the kernel alone, warm and cold (L2 flushed by a 128 MB write
-before each launch), the launcher and the wrapper, all CUDA-event times
+commit unpacked with `git archive`, or this one). Both the earlier
+interface (grouped_sums on states stacked as int64 [S, n]; join_probe on
+outputs its caller fills) and the current one are understood. For each
+kernel it prints one JSON line: the kernel alone, warm and cold (L2
+flushed by a 128 MB write and a 128 MB read before each launch), the
+launcher and the wrapper, all CUDA-event times
 in ms, with the card's name. --variants also builds this checkout's
 sources with each macro setting of VARIANTS and times the kernel alone
 of each after checking its result against the default build.
@@ -28,14 +29,12 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# macro settings of csrc/ tried by --variants (defaults: GS_HIST=1,
-# GS_THREADS=1024, GS_UNROLL=4, GS_ITEM_ROWS=1024, JP_ROWS=2,
-# JP_THREADS=128, JP_CG=0)
+# macro settings of csrc/ tried by --variants (defaults: GS_THREADS=1024,
+# GS_UNROLL=4, GS_ITEM_ROWS=1024, JP_ROWS=2, JP_THREADS=128)
 VARIANTS = {
     "grouped_sums": [("GS_ITEM_ROWS=512",), ("GS_UNROLL=2",),
-                     ("GS_THREADS=512",), ("GS_HIST=0", "GS_THREADS=512")],
-    "hash_table": [("JP_ROWS=1",), ("JP_ROWS=4",), ("JP_ROWS=2", "JP_CG=1"),
-                   ("JP_ROWS=2", "JP_THREADS=256")],
+                     ("GS_THREADS=512",)],
+    "hash_table": [("JP_ROWS=1",), ("JP_ROWS=4",), ("JP_THREADS=256",)],
 }
 
 
@@ -56,9 +55,9 @@ def _wide(torch, state):
     return state.to(torch.int64)
 
 
-def _pr1_grouped_sums(torch, cs, lib, sp, gid, states, g):
-    """PR 1's bare launch: the states stacked as int64 [S, n] (untimed),
-    checked once against the plain version."""
+def _stacked_grouped_sums(torch, cs, lib, sp, gid, states, g):
+    """The earlier interface's bare launch: the states stacked as int64
+    [S, n] (untimed), checked once against the plain version."""
     from presto_tpu_torch.ops import groupby_kernels as gk
 
     vals = torch.stack([_wide(torch, s) for s in states])
@@ -70,14 +69,14 @@ def _pr1_grouped_sums(torch, cs, lib, sp, gid, states, g):
         cs._rc(lib.grouped_sums_launch(*args), "grouped_sums")
     launch()
     cs.require(torch.equal(out, gk.grouped_sums_plain(gid, vals, g)),
-               "PR 1 grouped_sums: bare launch differs from plain")
+               "stacked grouped_sums: bare launch differs from plain")
     return launch, vals
 
 
-def _pr1_join_probe(torch, cs, lib, sp, slot0, pkeys, plive, slot_row, bkeys,
-                    f):
-    """PR 1's bare launch (its caller fills mm with -1 and zeroes stat;
-    neither is timed)."""
+def _filled_join_probe(torch, cs, lib, sp, slot0, pkeys, plive, slot_row,
+                       bkeys, f):
+    """The earlier interface's bare launch (its caller fills mm with -1
+    and zeroes stat; neither is timed)."""
     k, n = pkeys.shape
     dev = slot0.device
     mm = torch.full((n, f), -1, dtype=torch.int32, device=dev)
@@ -109,8 +108,8 @@ def time_root(torch, cs, inputs, flush):
             cs._bare_grouped_sums(torch, gsl, sp, *gin)[0],
             lambda: gk._grouped_sums_cuda(*gin),
             lambda: gk.grouped_sums(*gin))}
-    else:  # PR 1: one int64 [S, n] tensor
-        bare, vals = _pr1_grouped_sums(torch, cs, gsl, sp, *gin)
+    else:  # earlier interface: one int64 [S, n] tensor
+        bare, vals = _stacked_grouped_sums(torch, cs, gsl, sp, *gin)
         gid, states, g = gin
         wide = list(vals)
         out = {"grouped_sums": (
@@ -119,7 +118,7 @@ def time_root(torch, cs, inputs, flush):
     if len(htl.join_probe_launch.argtypes) == 15:  # with zero_stat
         jp = cs._bare_join_probe(torch, htl, sp, *jin)[0]
     else:
-        jp = _pr1_join_probe(torch, cs, htl, sp, *jin)
+        jp = _filled_join_probe(torch, cs, htl, sp, *jin)
     out["join_probe"] = (jp, lambda: hk._join_probe_cuda(*jin),
                          lambda: hk.join_probe(*jin))
 
@@ -166,65 +165,32 @@ def time_variants(torch, cs, inputs, flush):
     sp = stream_ptr(torch.device("cuda"))
     jobs = [(src, d) for src, ds in VARIANTS.items() for d in ds]
     build_all((), jobs)
-    gid, states, g = inputs["grouped_sums"][1]
-    want_gs = torch.stack(gk.grouped_sums(gid, states, g))
-    pslot, pkeys, plive, sr, bkeys, f = inputs["join_probe"][1]
-    want_mm, want_cnt, want_ovf = hk.join_probe(pslot, pkeys, plive, sr,
-                                                bkeys, f)
+    want_gs = torch.stack(gk.grouped_sums(*inputs["grouped_sums"][1]))
+    want_mm, want_cnt, want_ovf = hk.join_probe(*inputs["join_probe"][1])
     rows = {}
     for src, d in jobs:
         name = "grouped_sums" if src == "grouped_sums" else "join_probe"
         bare = (cs._bare_grouped_sums if name == "grouped_sums"
-                else cs._bare_join_probe)(torch, library(src, d), sp,
-                                          *inputs[name][1])[0]
-        # result of one launch of the variant against the default build
+                else cs._bare_join_probe)
+        launch, _, _, _, outs = bare(torch, library(src, d), sp,
+                                     *inputs[name][1])
+        # one launch of the variant against the default build
         if name == "grouped_sums":
-            got = _one_grouped_sums(torch, gk, library(src, d), gid, states, g)
-            cs.require(torch.equal(got, want_gs),
-                       f"grouped_sums {d}: differs from the default build")
+            outs.zero_()
+            launch()
+            ok = torch.equal(outs, want_gs)
         else:
-            mm, cnt, ovf = _one_join_probe(torch, library(src, d), pslot,
-                                           pkeys, plive, sr, bkeys, f)
-            cs.require(torch.equal(cnt, want_cnt) and int(ovf) ==
-                       int(want_ovf) and torch.equal(
-                           mm.sort(dim=1).values, want_mm.sort(dim=1).values),
-                       f"join_probe {d}: differs from the default build")
+            mm, cnt, stat = outs
+            stat.zero_()
+            launch()
+            ok = (torch.equal(cnt, want_cnt) and int(stat[0]) == int(want_ovf)
+                  and torch.equal(mm.sort(dim=1).values,
+                                  want_mm.sort(dim=1).values))
+        cs.require(ok, f"{name} {d}: differs from the default build")
         rows[f"{name}[{' '.join(d)}]"] = {
-            "ms_cold": cs.kernel_alone_ms(torch, bare, flush=flush),
-            "ms_warm": cs.kernel_alone_ms(torch, bare)}
+            "ms_cold": cs.kernel_alone_ms(torch, launch, flush=flush),
+            "ms_warm": cs.kernel_alone_ms(torch, launch)}
     return rows
-
-
-def _one_grouped_sums(torch, gk, lib, gid, states, g):
-    from presto_tpu_torch.kernels._build import stream_ptr
-
-    tables, _parts = gk.state_tables(gid, states, g)
-    out = torch.zeros(len(states), g, dtype=torch.int64, device=gid.device)
-    for plan, arr in tables:
-        r = lib.grouped_sums_launch(
-            gid.data_ptr(), arr.buffer_info()[0], len(plan.states),
-            out.data_ptr(), 0, gid.shape[0], g, plan.groups_tile,
-            plan.states_tile, stream_ptr(gid.device))
-        assert r == 0, r
-    torch.cuda.synchronize()
-    return out
-
-
-def _one_join_probe(torch, lib, pslot, pkeys, plive, sr, bkeys, f):
-    from presto_tpu_torch.kernels._build import stream_ptr
-
-    k, n = pkeys.shape
-    dev = pslot.device
-    mm = torch.empty((n, f), dtype=torch.int32, device=dev)
-    cnt = torch.empty(n, dtype=torch.int32, device=dev)
-    stat = torch.zeros(1, dtype=torch.int32, device=dev)
-    r = lib.join_probe_launch(
-        pslot.data_ptr(), pkeys.data_ptr(), plive.data_ptr(), sr.data_ptr(),
-        bkeys.data_ptr(), mm.data_ptr(), cnt.data_ptr(), stat.data_ptr(), 1,
-        n, k, bkeys.shape[1], sr.shape[0], f, stream_ptr(dev))
-    assert r == 0, r
-    torch.cuda.synchronize()
-    return mm, cnt, stat[0]
 
 
 def main(argv=None) -> int:

@@ -21,16 +21,16 @@
 //   items round-robin, heaviest states first (the caller orders the table
 //   by width). A lane streams its rows of the state with 16-byte vector
 //   loads, GS_UNROLL of them in flight, evict-first, and adds each value to
-//   its accumulator for the row's group. No atomics in the row loop. At
+//   its histogram slot for the row's group. No atomics in the row loop. At
 //   the end of an item the warp reduces by shuffles and issues one global
 //   atomicAdd per (state, group).
-//   The accumulators (RegAcc, SmemAcc below) and the way the values arrive
-//   were chosen by measurement (PERF.md; kernel_ab.py --variants): G int64
-//   registers a lane with a predicated add per group cost G adds a value
-//   and kept 128 registers a thread, so blocks of 512; a per-lane
-//   histogram in shared memory costs one read-add-write a value and lets a
-//   block run 1024 threads. Staging states through shared memory by bulk
-//   copy (cp.async.bulk on an mbarrier) measured no faster than the vector
+//   The accumulators and the way the values arrive were chosen by
+//   measurement (PERF.md; kernel_ab.py --variants): G int64 registers a
+//   lane with a predicated add per group cost G adds a value and held 128
+//   registers a thread, so blocks of 512; a per-lane histogram in shared
+//   memory (SmemAcc) costs one read-add-write a value and lets a block run
+//   1024 threads. Staging states through shared memory by bulk copy
+//   (cp.async.bulk on an mbarrier) measured no faster than the vector
 //   loads: each value is read by one lane once.
 // - Larger G (<= 512): shared-memory privatization of a tile of states
 //   (dynamic shared memory opted in up to 227 KB, so G = 512 fits 56 states
@@ -48,9 +48,6 @@
 // Macro settings that kernel_ab.py --variants measures against each other.
 #ifndef GS_UNROLL
 #define GS_UNROLL 4  // 16-byte vector loads in flight per lane
-#endif
-#ifndef GS_HIST
-#define GS_HIST 1  // 1: SmemAcc, 0: RegAcc
 #endif
 #ifndef GS_THREADS
 #define GS_THREADS 1024  // threads of a small-G block (halved at G > 8)
@@ -72,12 +69,12 @@ static_assert(kChunkRows % kItemRows == 0 && kItemRows % 16 == 0,
 
 // threads of a small-G block: at G > 8 half, so the histograms fit
 constexpr int small_threads(int gt) {
-  return GS_HIST && gt > 8 ? GS_THREADS / 2 : GS_THREADS;
+  return gt > 8 ? GS_THREADS / 2 : GS_THREADS;
 }
 
 // shared memory of a small-G block: staged gids, then the histograms
 constexpr int small_smem(int gt) {
-  return kChunkRows + (GS_HIST ? small_threads(gt) / 32 * 2 * gt * 32 * 8 : 0);
+  return kChunkRows + small_threads(gt) / 32 * 2 * gt * 32 * 8;
 }
 
 // element kinds: how a state's bytes widen to int64
@@ -98,34 +95,11 @@ __host__ __device__ __forceinline__ int kind_bytes(int kind) {
   return kind == kI64 ? 8 : kind == kI32 ? 4 : kind == kI16 ? 2 : 1;
 }
 
-// A lane's GT int64 accumulators, GT = G rounded up to a power of two.
-// RegAcc: in registers, a predicated add for each group a value. SmemAcc:
-// in the warp's two shared-memory histograms [GT][32] (the lane's column;
-// one histogram for even and one for odd elements of a vector, so that
-// consecutive read-add-writes do not wait on each other), one
-// read-add-write a value whatever GT. A dead row (gid byte 0xFF) adds
-// nothing.
-template <int GT>
-struct RegAcc {
-  static constexpr int kGroups = GT;
-  long long a[GT];
-  __device__ __forceinline__ void init(long long*, int) {
-#pragma unroll
-    for (int k = 0; k < GT; ++k) a[k] = 0;
-  }
-  template <int C>
-  __device__ __forceinline__ void add(int g, long long x) {
-#pragma unroll
-    for (int k = 0; k < GT; ++k)
-      if (g == k) a[k] += x;
-  }
-  __device__ __forceinline__ long long take(int k) {
-    const long long v = a[k];  // k is a compile-time index at every call
-    a[k] = 0;
-    return v;
-  }
-};
-
+// A lane's GT int64 accumulators, GT = G rounded up to a power of two, in
+// its column of the warp's two shared-memory histograms [GT][32] (one for
+// even and one for odd elements of a vector, so that consecutive
+// read-add-writes do not wait on each other): one read-add-write a value,
+// whatever GT. A dead row (gid byte 0xFF) adds nothing.
 template <int GT>
 struct SmemAcc {
   static constexpr int kGroups = GT;
@@ -318,14 +292,9 @@ __global__ void __launch_bounds__(small_threads(GT), 1)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-#if GS_HIST
   SmemAcc<GT> acc;
   acc.init(reinterpret_cast<long long*>(smem + kChunkRows) +
                warp * 2 * GT * 32, lane);
-#else
-  RegAcc<GT> acc;
-  acc.init(nullptr, lane);
-#endif
   const int r0 = blockIdx.x * rows_per_block;  // a multiple of 16
   const int r1 = min(n, r0 + rows_per_block);
   for (int c0 = r0; c0 < r1; c0 += kChunkRows) {
@@ -347,7 +316,8 @@ __global__ void __launch_bounds__(small_threads(GT), 1)
   }
 }
 
-__device__ __forceinline__ long long load_state(const GsState& st, long long i) {
+__device__ __forceinline__ long long load_state(const GsState& st,
+                                                long long i) {
   if (st.mask && !st.mask[i]) return 0;
   switch (st.kind) {
     case kU8: return static_cast<const unsigned char*>(st.vals)[i];
@@ -372,7 +342,8 @@ __global__ void __launch_bounds__(kLargeThreads)
   const unsigned below = (1u << lane) - 1u;
   const long long stride = (long long)gridDim.x * blockDim.x;
   // every lane of a warp runs the same number of iterations (shuffles)
-  for (long long base = (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
+  for (long long base =
+           (long long)blockIdx.x * blockDim.x + (threadIdx.x & ~31);
        base < n; base += stride) {
     const long long i = base + lane;
     const int g = i < n ? gid[i] : -1;

@@ -34,8 +34,8 @@
 //   each chain's dependent loads (slot_row[s], then bkeys[r]), not by
 //   bytes. Each thread therefore walks JP_ROWS probe rows at once, one
 //   slot of each per round, so those rows' loads are in flight together;
-//   the table is read through the cache path set by JP_CG (PERF.md has
-//   the measurement that chose it). A row's first F matches stay in
+//   the table is read through L1 (__ldg measured faster than __ldcg,
+//   PERF.md). A row's first F matches stay in
 //   registers (F a power of two up to 16; wider fanouts store matches as
 //   found) and the kernel writes every entry of every row, dead rows
 //   included: matches, then -1 padding, as 16-byte stores where F % 4 ==
@@ -137,18 +137,6 @@ __global__ void join_insert_kernel(const int* __restrict__ slot0,
 #ifndef JP_THREADS
 #define JP_THREADS 128
 #endif
-#ifndef JP_CG
-#define JP_CG 0  // 1: read the table with __ldcg (L2 only), 0: __ldg
-#endif
-
-template <typename T>
-__device__ __forceinline__ T ld_table(const T* p) {
-#if JP_CG
-  return __ldcg(p);
-#else
-  return __ldg(p);
-#endif
-}
 
 // Row i's first matches (or -1) as FT ints; FT is the fanout when it is a
 // small power of two (the registers hold the row), 0 for a wider fanout
@@ -225,10 +213,10 @@ __global__ void __launch_bounds__(JP_THREADS)
       long long bk[JP_ROWS];
 #pragma unroll
       for (int q = 0; q < JP_ROWS; ++q)
-        r[q] = go[q] ? ld_table(slot_row + ((slot[q] + j[q]) & mask)) : -1;
+        r[q] = go[q] ? __ldg(slot_row + ((slot[q] + j[q]) & mask)) : -1;
 #pragma unroll
       for (int q = 0; q < JP_ROWS; ++q)
-        bk[q] = r[q] >= 0 ? ld_table(bkeys + r[q]) : 0;
+        bk[q] = r[q] >= 0 ? __ldg(bkeys + r[q]) : 0;
       any = false;
 #pragma unroll
       for (int q = 0; q < JP_ROWS; ++q) {
@@ -239,7 +227,7 @@ __global__ void __launch_bounds__(JP_THREADS)
         }
         bool eq = bk[q] == key[q];
         for (int k = 1; k < K && eq; ++k)
-          eq = ld_table(bkeys + k * cap_b + r[q]) ==
+          eq = __ldg(bkeys + k * cap_b + r[q]) ==
                pkeys[(long long)k * n + row[q]];
         if (eq) {
           if (c[q] < F) out[q].put(mm + (long long)row[q] * F, c[q], r[q]);

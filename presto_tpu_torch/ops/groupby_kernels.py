@@ -105,32 +105,36 @@ def state_tables(gid: torch.Tensor, int_states: Sequence[State],
     and the tensors the tables point into (the caller keeps them alive up
     to the launch)."""
     shape, dev = gid.shape, gid.get_device()
-    parts, kinds, widths = [], [], []
+    parts, rows, widths = [], [], []
     for state in int_states:
         v, m = _split(state)
         kind, width = KINDS.get(v.dtype, (None, 0))
         if kind is None:
             raise ValueError(f"grouped_sums: state dtype {v.dtype} is not "
                              f"one of {sorted(map(str, KINDS))}")
-        for t in (v,) if m is None else (v, m):
-            if t.shape != shape or t.get_device() != dev:
-                raise ValueError("grouped_sums: every state and mask must be "
-                                 "an [n] tensor on gid's device")
+        if v.shape != shape or v.get_device() != dev:
+            raise ValueError("grouped_sums: every state must be an [n] "
+                             "tensor on gid's device")
+        if not v.is_contiguous():
+            v = v.contiguous()
+        mptr = 0
         if m is not None:
-            if m.dtype != torch.bool:
-                raise ValueError("grouped_sums: a state's mask must be bool")
+            if (m.dtype != torch.bool or m.shape != shape
+                    or m.get_device() != dev):
+                raise ValueError("grouped_sums: a state's mask must be a bool "
+                                 "[n] tensor on gid's device")
             if not m.is_contiguous():
                 m = m.contiguous()
-        parts.append((v if v.is_contiguous() else v.contiguous(), m))
-        kinds.append(kind)
+            mptr = m.data_ptr()
+        parts.append((v, m))
+        rows.append((v.data_ptr(), mptr, kind))
         widths.append(width)
     tables = []
     for plan in launch_plan(tuple(widths), n_groups):
         flat = array.array("q")
         for i in plan.states:
-            v, m = parts[i]
-            flat.extend((v.data_ptr(), 0 if m is None else m.data_ptr(),
-                         i << 32 | kinds[i]))
+            vptr, mptr, kind = rows[i]
+            flat.extend((vptr, mptr, i << 32 | kind))
         tables.append((plan, flat))
     return tables, parts
 
