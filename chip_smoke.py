@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (presto_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--save-inputs FILE]
+    python3 chip_smoke.py
 
 1. Build: print the card's name and power limit, build the CUDA kernels
    from presto_tpu_torch/csrc (one nvcc per source, all at once).
@@ -24,8 +24,6 @@
    version's time and result, the bound (bytes of the distinct inputs
    read once and outputs written once, over 3.35 TB/s), which the cold
    time must not beat, and for grouped_sums one `index_add_` call.
-   `--save-inputs FILE` also writes those inputs (torch.save) for
-   kernel_ab.py.
 
 Prints a `kernels` JSON line (`ms` is the cold kernel-alone time where
 one was taken), then as its last line
@@ -37,6 +35,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -129,9 +128,17 @@ def phase_build(torch):
     print(f"build: {time.perf_counter() - t0:.2f} s for "
           f"{', '.join(sorted(logs))}")
     for name, log in sorted(logs.items()):
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+            if "Function properties for" in line:
+                # the kernel's name and template argument, out of the
+                # mangled name
+                m = re.search(r"(grouped_sums_(?:small|large)|[a-z_]+_kernel)"
+                              r"(?:ILi(\d+)E)?", line)
+                fn = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+                      if m else "")
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}] {fn}: {line.strip()}")
 
 
 # ---------------------------------------------------------------------------
@@ -394,9 +401,12 @@ def phase_kernels(torch):
               f" invariants hold (rows cut: the plain version is serial)")
 
     ji_err = jp_err = 0
-    # (build rows, distinct build keys, fanouts, all rows on one slot)
+    # (build rows, distinct build keys, fanouts, all rows on one slot); the
+    # third case has about 46 matches a key, so F = 16 and 32 overflow and
+    # F = 32 and 64 take the kernel's branch for fanouts past 16
     for bn, dup, fanouts, collide in ((m, 20000, (8, 1, 16), False),
-                                      (2048, 300, (8, 16), True)):
+                                      (2048, 300, (8, 16), True),
+                                      (4096, 80, (16, 32, 64), False)):
         bkeys = synthetic_planes(torch, rng, bn, 1, dup, dev)
         blive = torch.from_numpy(rng.random(bn) < 0.9).to(dev)
         tcap = 2 * bn
@@ -421,6 +431,14 @@ def phase_kernels(torch):
                   f"{' one-slot collisions' if collide else ''}: counts, "
                   f"overflow, match sets and -1 padding equal to plain "
                   f"(exact)")
+    # the launch refuses a fanout that is not a power of two, as the
+    # wrapper does (it checks F before it reads any pointer)
+    from presto_tpu_torch.kernels._build import library, stream_ptr
+
+    rc = library("hash_table").join_probe_launch(
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 16, 1, 16, 32, 12, stream_ptr(dev))
+    require(rc != 0, "join_probe launched with F=12")
+    print("kernel join_probe: F=12 refused (fanouts are powers of two)")
     torch.cuda.synchronize()
     return {"grouped_sums": gs_err, "group_insert": gi_err,
             "join_insert": ji_err, "join_probe": jp_err}
@@ -950,13 +968,7 @@ def phase_timing(torch, inputs, errs):
     return rows
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--save-inputs", metavar="FILE",
-                    help="write each kernel's timed inputs here")
-    save_inputs = ap.parse_args(argv).save_inputs
+def main() -> int:
     try:
         import torch
     except ImportError:
@@ -976,8 +988,6 @@ def main(argv=None) -> int:
     phase_build(torch)
     errs = phase_kernels(torch)
     launches, inputs, _ = phase_queries(torch)
-    if save_inputs:
-        torch.save(inputs, save_inputs)
     rows = phase_timing(torch, inputs, errs)
     kernels = []
     for name, r in rows.items():

@@ -20,16 +20,16 @@
 //   state to reuse. A work item is (kItemRows rows, state); the warps take
 //   items round-robin, heaviest states first (the caller orders the table
 //   by width). A lane streams its rows of the state with 16-byte vector
-//   loads, GS_UNROLL of them in flight, evict-first, and adds each value to
-//   its histogram slot for the row's group. No atomics in the row loop. At
-//   the end of an item the warp reduces by shuffles and issues one global
-//   atomicAdd per (state, group).
-//   The accumulators and the way the values arrive were chosen by
-//   measurement (PERF.md; kernel_ab.py --variants): G int64 registers a
-//   lane with a predicated add per group cost G adds a value and held 128
+//   loads, kUnroll of them in flight, evict-first, and adds each value to
+//   its column of the warp's histogram in shared memory, at the row's
+//   group. No atomics in the row loop. At the end of an item the warp
+//   reduces by shuffles and issues one global atomicAdd per (state, group).
+//   The accumulators, the block size, the item size and the way the values
+//   arrive were chosen by measurement (PERF.md): G int64 registers a lane
+//   with a predicated add per group cost G adds a value and held 128
 //   registers a thread, so blocks of 512; a per-lane histogram in shared
-//   memory (SmemAcc) costs one read-add-write a value and lets a block run
-//   1024 threads. Staging states through shared memory by bulk copy
+//   memory costs one read-add-write a value and lets a block run 1024
+//   threads. Staging states through shared memory by bulk copy
 //   (cp.async.bulk on an mbarrier) measured no faster than the vector
 //   loads: each value is read by one lane once.
 // - Larger G (<= 512): shared-memory privatization of a tile of states
@@ -45,22 +45,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Macro settings that kernel_ab.py --variants measures against each other.
-#ifndef GS_UNROLL
-#define GS_UNROLL 4  // 16-byte vector loads in flight per lane
-#endif
-#ifndef GS_THREADS
-#define GS_THREADS 1024  // threads of a small-G block (halved at G > 8)
-#endif
-#ifndef GS_ITEM_ROWS
-#define GS_ITEM_ROWS 1024  // rows of one work item
-#endif
-
 namespace {
 
 constexpr int kMaxStates = 64;
 constexpr int kLargeThreads = 512;
-constexpr int kItemRows = GS_ITEM_ROWS;
+constexpr int kSmallThreads = 1024;  // threads of a small-G block (G <= 8)
+constexpr int kUnroll = 4;           // 16-byte vector loads in flight a lane
+constexpr int kItemRows = 1024;      // rows of one work item
 constexpr int kChunkRows = 8192;  // gids staged at once (bytes)
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in ceiling on sm_90
 constexpr unsigned kFull = 0xffffffffu;
@@ -69,7 +60,7 @@ static_assert(kChunkRows % kItemRows == 0 && kItemRows % 16 == 0,
 
 // threads of a small-G block: at G > 8 half, so the histograms fit
 constexpr int small_threads(int gt) {
-  return gt > 8 ? GS_THREADS / 2 : GS_THREADS;
+  return gt > 8 ? kSmallThreads / 2 : kSmallThreads;
 }
 
 // shared memory of a small-G block: staged gids, then the histograms
@@ -208,11 +199,11 @@ __device__ __forceinline__ void accumulate(const T* __restrict__ v,
   int r = 0;
   if (aligned) {
     const int nv = len / VEC;  // whole vectors in the item
-    for (int v0 = 0; v0 < nv; v0 += 32 * GS_UNROLL) {
-      uint4 x[GS_UNROLL];
-      uint4 mk[GS_UNROLL];
+    for (int v0 = 0; v0 < nv; v0 += 32 * kUnroll) {
+      uint4 x[kUnroll];
+      uint4 mk[kUnroll];
 #pragma unroll
-      for (int u = 0; u < GS_UNROLL; ++u) {
+      for (int u = 0; u < kUnroll; ++u) {
         const int k = v0 + u * 32 + lane;
         if (k < nv) {
           x[u] = load_vec<16, false>(v + k * VEC);
@@ -220,7 +211,7 @@ __device__ __forceinline__ void accumulate(const T* __restrict__ v,
         }
       }
 #pragma unroll
-      for (int u = 0; u < GS_UNROLL; ++u) {
+      for (int u = 0; u < kUnroll; ++u) {
         const int k = v0 + u * 32 + lane;
         if (k < nv)
           add_elems<T, 0, MASK>(x[u], mk[u], load_vec<VEC, true>(g8 + k * VEC),
@@ -441,8 +432,8 @@ struct GsStateHost {
 // zero_rows rows are zeroed here first (the caller passes the output's
 // row count on the first launch of a call, 0 on later ones).
 // The caller's launch plan picks the path: groups_tile in {2, 4, 8, 16}
-// (>= G) takes the register path; groups_tile 0 takes the shared-memory
-// path with states_tile states a tile.
+// (>= G) takes the small-G (histogram) path; groups_tile 0 takes the
+// larger-G (shared privatization) path with states_tile states a tile.
 int grouped_sums_launch(const void* gid, const void* states, int count,
                         void* out, int zero_rows, int n, int G,
                         int groups_tile, int states_tile, void* stream) {

@@ -28,21 +28,20 @@
 //   with occ = 0.
 // - join_insert: one thread per live row claims the first slot of its
 //   chain whose row is -1 with atomicCAS. Chain order is nondeterministic.
-// - join_probe (redesigned for Hopper): the table (slot_row, then the
-//   build keys by row) is small next to the 50 MB L2 and is read again by
-//   every probe batch of a query, so the kernel is bound by the latency of
-//   each chain's dependent loads (slot_row[s], then bkeys[r]), not by
-//   bytes. Each thread therefore walks JP_ROWS probe rows at once, one
-//   slot of each per round, so those rows' loads are in flight together;
-//   the table is read through L1 (__ldg measured faster than __ldcg,
-//   PERF.md). A row's first F matches stay in
-//   registers (F a power of two up to 16; wider fanouts store matches as
-//   found) and the kernel writes every entry of every row, dead rows
-//   included: matches, then -1 padding, as 16-byte stores where F % 4 ==
-//   0, and the exact count. So mm and cnt need no fill; rows with more than
-//   F matches are counted per warp by shuffles and added to the one-word
-//   overflow counter once per block. Match order within a row follows
-//   chain order, so it may differ from the serial kernel's.
+// - join_probe (redesigned for Hopper): one thread per probe row walks its
+//   chain; the table (slot_row, then the build keys by row) is small next
+//   to the 50 MB L2 and is read again by every probe batch of a query, so
+//   it is read through L1 (__ldg measured faster than __ldcg, PERF.md).
+//   Walking two or four rows a thread, interleaved, measured no faster:
+//   Q3's chains are one or two slots long. A row's first F matches stay in
+//   registers (F a power of two up to 16; a wider fanout, also a power of
+//   two, stores matches as found) and the kernel writes every entry of
+//   every row, dead rows included: matches, then -1 padding (as 16-byte
+//   stores for F from 4 to 16), and the exact count. So mm and cnt need
+//   no fill; rows with more than F matches are counted per warp by
+//   shuffles and added to the one-word overflow counter once per block.
+//   Match order within a row follows chain order, so it may differ from
+//   the serial kernel's.
 //
 // The callers allocate every output; group_insert's and join_insert's
 // are zeroed or filled by them; of join_probe's only the one-word overflow
@@ -131,15 +130,10 @@ __global__ void join_insert_kernel(const int* __restrict__ slot0,
   }
 }
 
-#ifndef JP_ROWS
-#define JP_ROWS 2  // probe rows one thread walks at once
-#endif
-#ifndef JP_THREADS
-#define JP_THREADS 128
-#endif
+constexpr int kProbeThreads = 128;
 
-// Row i's first matches (or -1) as FT ints; FT is the fanout when it is a
-// small power of two (the registers hold the row), 0 for a wider fanout
+// A probe row's first matches (or -1) as FT ints; FT is the fanout when it
+// is at most 16 (the registers hold the row), 0 for a wider fanout
 // (matches are stored as they are found and the rest padded after).
 template <int FT>
 struct MatchRow {
@@ -173,11 +167,8 @@ struct MatchRow {
   }
 };
 
-// Each thread walks JP_ROWS probe chains at once, one slot of each per
-// round, so the dependent loads of different rows (slot_row[s], then the
-// build key) are in flight together.
 template <int FT>
-__global__ void __launch_bounds__(JP_THREADS)
+__global__ void __launch_bounds__(kProbeThreads)
     join_probe_kernel(const int* __restrict__ slot0,
                       const long long* __restrict__ pkeys,
                       const bool* __restrict__ plive,
@@ -189,62 +180,31 @@ __global__ void __launch_bounds__(JP_THREADS)
   if (threadIdx.x == 0) block_ovf = 0;
   __syncthreads();
   const int mask = tcap - 1;
-  const int nthreads = gridDim.x * blockDim.x;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int ovf = 0;
-  for (int base = t; base < n; base += nthreads * JP_ROWS) {
-    int row[JP_ROWS], slot[JP_ROWS], j[JP_ROWS], c[JP_ROWS];
-    long long key[JP_ROWS];
-    bool go[JP_ROWS];
-    MatchRow<FT> out[JP_ROWS];
-#pragma unroll
-    for (int q = 0; q < JP_ROWS; ++q) {
-      row[q] = base + q * nthreads;
-      go[q] = row[q] < n && plive[row[q]];
-      slot[q] = go[q] ? slot0[row[q]] : 0;
-      key[q] = go[q] ? pkeys[row[q]] : 0;
-      j[q] = 0;
-      c[q] = 0;
-      out[q].init();
-    }
-    bool any = true;
-    while (any) {
-      int r[JP_ROWS];
-      long long bk[JP_ROWS];
-#pragma unroll
-      for (int q = 0; q < JP_ROWS; ++q)
-        r[q] = go[q] ? __ldg(slot_row + ((slot[q] + j[q]) & mask)) : -1;
-#pragma unroll
-      for (int q = 0; q < JP_ROWS; ++q)
-        bk[q] = r[q] >= 0 ? __ldg(bkeys + r[q]) : 0;
-      any = false;
-#pragma unroll
-      for (int q = 0; q < JP_ROWS; ++q) {
-        if (!go[q]) continue;
-        if (r[q] < 0) {
-          go[q] = false;
-          continue;
-        }
-        bool eq = bk[q] == key[q];
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    int* mm_row = mm + (long long)i * F;
+    MatchRow<FT> out;
+    out.init();
+    int c = 0;
+    if (plive[i]) {
+      const int s0 = slot0[i];
+      const long long key = pkeys[i];
+      for (int j = 0; j < tcap; ++j) {
+        const int r = __ldg(slot_row + ((s0 + j) & mask));
+        if (r < 0) break;
+        bool eq = __ldg(bkeys + r) == key;
         for (int k = 1; k < K && eq; ++k)
-          eq = __ldg(bkeys + k * cap_b + r[q]) ==
-               pkeys[(long long)k * n + row[q]];
+          eq = __ldg(bkeys + k * cap_b + r) == pkeys[(long long)k * n + i];
         if (eq) {
-          if (c[q] < F) out[q].put(mm + (long long)row[q] * F, c[q], r[q]);
-          ++c[q];
+          if (c < F) out.put(mm_row, c, r);
+          ++c;
         }
-        go[q] = ++j[q] < tcap;
-        any |= go[q];
       }
     }
-#pragma unroll
-    for (int q = 0; q < JP_ROWS; ++q) {
-      if (row[q] < n) {
-        out[q].store(mm + (long long)row[q] * F, c[q], F);
-        cnt[row[q]] = c[q];
-        ovf += c[q] > F;
-      }
-    }
+    out.store(mm_row, c, F);
+    cnt[i] = c;
+    ovf += c > F;
   }
   // rows over the fanout: counted per warp, added once per block
   const int lane = threadIdx.x & 31;
@@ -275,11 +235,10 @@ cudaError_t launch_probe(const int* slot0, const long long* pkeys,
                          const long long* bkeys, int* mm, int* cnt, int* stat,
                          int n, int K, long long cap_b, int tcap, int F,
                          cudaStream_t stream) {
-  const int per_block = JP_THREADS * JP_ROWS;
-  int blocks = (n + per_block - 1) / per_block;
-  const int max_blocks = sm_count() * (2048 / JP_THREADS);
+  int blocks = (n + kProbeThreads - 1) / kProbeThreads;
+  const int max_blocks = sm_count() * (2048 / kProbeThreads);
   if (blocks > max_blocks) blocks = max_blocks;
-  join_probe_kernel<FT><<<blocks, JP_THREADS, 0, stream>>>(
+  join_probe_kernel<FT><<<blocks, kProbeThreads, 0, stream>>>(
       slot0, pkeys, plive, slot_row, bkeys, mm, cnt, stat, n, K, cap_b, tcap,
       F);
   return cudaGetLastError();
@@ -314,15 +273,16 @@ extern "C" int join_insert_launch(const void* slot0, const void* live,
 
 // slot0 int32[n]; pkeys int64[K, n]; plive bool[n]; slot_row int32[tcap];
 // bkeys int64[K, cap_b] -> mm int32[n, F] and cnt int32[n], every entry
-// written (no fill needed; mm 16-byte aligned); stat int32[1]: rows with
-// more than F matches, zeroed here first when zero_stat is set.
+// written (no fill needed; mm 16-byte aligned); F a power of two; stat
+// int32[1]: rows with more than F matches, zeroed here first when
+// zero_stat is set.
 extern "C" int join_probe_launch(const void* slot0, const void* pkeys,
                                  const void* plive, const void* slot_row,
                                  const void* bkeys, void* mm, void* cnt,
                                  void* stat, int zero_stat, int n, int K,
                                  long long cap_b, int tcap, int F,
                                  void* stream) {
-  if (K < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  if (K < 1 || F < 1 || (F & (F - 1))) return (int)cudaErrorInvalidValue;
   if (zero_stat) {
     cudaError_t e =
         cudaMemsetAsync(stat, 0, sizeof(int), (cudaStream_t)stream);

@@ -15,7 +15,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -24,7 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -51,30 +51,24 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _flags(defines: Tuple[str, ...]):
-    return NVCC_FLAGS + [f"-D{d}" for d in defines]
-
-
-def _target(name: str, defines: Tuple[str, ...] = ()) -> str:
+def _target(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_flags(defines)).encode())
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def _start_build(name: str, defines: Tuple[str, ...] = ()
-                 ) -> Optional[subprocess.Popen]:
-    out = _target(name, defines)
+def _start_build(name: str) -> Optional[subprocess.Popen]:
+    out = _target(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     src = os.path.join(CSRC, f"{name}.cu")
     return subprocess.Popen(
-        [nvcc(), *_flags(defines), "-o", out + ".tmp", src],
+        [nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", src],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _finish_build(name: str, proc: Optional[subprocess.Popen],
-                  defines: Tuple[str, ...] = ()) -> str:
+def _finish_build(name: str, proc: Optional[subprocess.Popen]) -> str:
     """Wait for one build; returns nvcc's report (register and shared
     memory use per kernel, from -Xptxas -v)."""
     if proc is None:
@@ -82,41 +76,35 @@ def _finish_build(name: str, proc: Optional[subprocess.Popen],
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    os.replace(_target(name, defines) + ".tmp", _target(name, defines))
+    os.replace(_target(name) + ".tmp", _target(name))
     return log
 
 
-def build_all(names: Iterable[str] = tuple(SIGNATURES),
-              variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()
-              ) -> Dict[str, str]:
-    """Compile every named source, and every (source, defines) variant, at
-    once (one nvcc each, all started together) and load them. Returns
-    nvcc's report per source (a variant's under "name[defines]")."""
-    jobs = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
+def build_all(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, str]:
+    """Compile every named source at once (one nvcc per source, all
+    started together) and load them. Returns nvcc's report per source."""
+    names = list(names)
     with _lock:
-        procs = {j: _start_build(*j) for j in jobs if j not in _libs}
-        logs = {j: _finish_build(j[0], p, j[1]) for j, p in procs.items()}
-    for n, d in jobs:
-        library(n, d)
-    return {(n if not d else f"{n}[{' '.join(d)}]"): log
-            for (n, d), log in logs.items()}
+        procs = {n: _start_build(n) for n in names if n not in _libs}
+        logs = {n: _finish_build(n, p) for n, p in procs.items()}
+    for n in names:
+        library(n)
+    return logs
 
 
-def library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded kernel library `name` (compiled with `defines`, macro
-    settings such as "JP_ROWS=4"), built first if needed."""
-    key = (name, tuple(defines))
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
     with _lock:
-        lib = _libs.get(key)
+        lib = _libs.get(name)
         if lib is not None:
             return lib
-        _finish_build(name, _start_build(*key), key[1])
-        lib = ctypes.CDLL(_target(*key))
+        _finish_build(name, _start_build(name))
+        lib = ctypes.CDLL(_target(name))
         for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-        _libs[key] = lib
+        _libs[name] = lib
         return lib
 
 

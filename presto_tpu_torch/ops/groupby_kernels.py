@@ -25,7 +25,7 @@ from presto_tpu_torch.kernels._build import check, library, stream_ptr
 
 MAX_GROUPS = 512  # the hash engine's largest kernel table (_HASH_KERNEL_SLOTS)
 MAX_STATES = 64  # descriptors in one launch's kernel-parameter table
-SMALL_GROUPS = 16  # up to here, accumulators live in registers
+SMALL_GROUPS = 16  # up to here, per-lane histograms in shared memory
 SMEM_BYTES = 232448  # dynamic shared memory a block may opt in to (227 KB)
 
 # element kind of each state dtype in the kernel's descriptor (how its
@@ -41,18 +41,18 @@ class Launch(NamedTuple):
     """One kernel launch: which states its descriptor table holds (indices
     into the caller's list, widest first) and which path sums them."""
     states: Tuple[int, ...]
-    path: str  # "registers" (G <= SMALL_GROUPS) | "shared"
-    groups_tile: int  # accumulators per lane (pow2 ≥ G), or 0 on "shared"
+    path: str  # "histogram" (G <= SMALL_GROUPS) | "shared"
+    groups_tile: int  # histogram slots per lane (pow2 ≥ G), or 0 on "shared"
     states_tile: int  # states per shared-memory tile on "shared", else 0
 
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(widths: Tuple[int, ...], n_groups: int) -> List[Launch]:
     """How `grouped_sums` splits its states into launches on the card:
-    states ordered by element width, widest first (the register path hands
-    work to warps in table order, heaviest first), in tables of at most
-    MAX_STATES; the register path for n_groups ≤ SMALL_GROUPS, else the
-    shared-memory path with as many states per tile as 227 KB hold."""
+    states ordered by element width, widest first (the histogram path
+    hands work to warps in table order, heaviest first), in tables of at
+    most MAX_STATES; the histogram path for n_groups ≤ SMALL_GROUPS, else
+    the shared-memory path with as many states per tile as 227 KB hold."""
     if n_groups > MAX_GROUPS:
         raise ValueError(f"grouped_sums takes at most {MAX_GROUPS} groups on "
                          f"the card, got {n_groups}")
@@ -64,7 +64,7 @@ def launch_plan(widths: Tuple[int, ...], n_groups: int) -> List[Launch]:
             gt = 2
             while gt < n_groups:
                 gt *= 2
-            plans.append(Launch(idx, "registers", gt, 0))
+            plans.append(Launch(idx, "histogram", gt, 0))
         else:
             tile = min(len(idx), SMEM_BYTES // (8 * n_groups))
             plans.append(Launch(idx, "shared", 0, tile))

@@ -93,7 +93,7 @@ def _mixed_states(rng, n, count):
     return states, ref
 
 
-# (rows, groups, states, every row dead): G on both sides of the register
+# (rows, groups, states, every row dead): G on both sides of the histogram
 # path's 16, more states than one launch's 64, all dead, no rows
 @pytest.mark.parametrize("n,g,count,dead", [
     (1000, 6, 12, False), (777, 16, 9, False), (600, 40, 12, False),
@@ -119,15 +119,15 @@ def test_grouped_sums_widths_masks_and_edges(n, g, count, dead):
     # Q1's direct path: 16 int64 states and 13 bool ones, 6 groups
     ([1] + [8, 1] * 12 + [8] * 4, 6,
      [(tuple(i for i in range(29) if i not in range(0, 26, 2)) + tuple(
-         range(0, 26, 2)), "registers", 8, 0)]),
-    ([4, 1, 8], 1, [((2, 0, 1), "registers", 2, 0)]),
-    ([8, 8], 16, [((0, 1), "registers", 16, 0)]),
+         range(0, 26, 2)), "histogram", 8, 0)]),
+    ([4, 1, 8], 1, [((2, 0, 1), "histogram", 2, 0)]),
+    ([8, 8], 16, [((0, 1), "histogram", 16, 0)]),
     ([8] * 3, 17, [((0, 1, 2), "shared", 0, 3)]),
     ([2] * 70, 512, [(tuple(range(64)), "shared", 0, 56),
                      (tuple(range(64, 70)), "shared", 0, 6)]),
     ([1, 8] * 35, 6, [(tuple(range(1, 70, 2)) + tuple(range(0, 58, 2)),
-                       "registers", 8, 0),
-                      (tuple(range(58, 70, 2)), "registers", 8, 0)]),
+                       "histogram", 8, 0),
+                      (tuple(range(58, 70, 2)), "histogram", 8, 0)]),
 ])
 def test_grouped_sums_launch_plan(widths, g, want):
     assert [tuple(p) for p in gk.launch_plan(tuple(widths), g)] == want
