@@ -236,88 +236,158 @@ def grouped_sums_cases():
             ("few rows", 100, 3, kinds, False, 0)]
 
 
-def _slot_keys(table, gid, tcap):
-    return table[:, gid.clamp(max=tcap - 1).long()]
+def _distinct(torch, rows):
+    """Distinct rows of a [m, K] tensor."""
+    if rows.shape[0] == 0:
+        return 0
+    if rows.shape[1] == 1:
+        return torch.unique(rows[:, 0]).numel()
+    return torch.unique(rows, dim=0).shape[0]
 
 
-def check_group_insert(torch, planes, slot0, live, cap):
-    """Invariants: placed rows find their own key in their slot; one slot
-    per distinct key; the occupied slots hold exactly the placed keys;
-    n_groups = min(distinct, cap) as in the serial version; overflow counts
-    unplaced live rows and is > 0 exactly when distinct > cap."""
-    from presto_tpu_torch.ops import hash_kernels as hk
+def _any_shared(torch, a, b):
+    """Whether a row of b [m, K] is also a row of a [m', K]."""
+    if a.shape[0] == 0 or b.shape[0] == 0:
+        return False
+    if a.shape[1] == 1:
+        return bool(torch.isin(b[:, 0], a[:, 0]).any())
+    _, inv = torch.unique(torch.cat([a, b]), dim=0, return_inverse=True)
+    in_a = torch.zeros(int(inv.max()) + 1, dtype=torch.bool, device=a.device)
+    in_a[inv[:a.shape[0]]] = True
+    return bool(in_a[inv[a.shape[0]:]].any())
 
-    gid, table, occ, ng, ovf = hk.group_insert(planes, slot0, live, cap)
-    torch.cuda.synchronize()
-    p = hk.group_insert_plain(planes.cpu(), slot0.cpu(), live.cpu(), cap)
+
+def group_invariants(torch, planes, live, cap, out):
+    """group_insert's contract, checked on the card with torch alone (no
+    serial version): dead rows get tcap; a placed row's slot is occupied
+    and holds the row's key; occ is 0 or 1 and every occupied slot is a
+    placed row's; free slots hold zero keys; one slot per key; no unplaced
+    row's key holds a slot; n_groups = min(distinct, cap) = occupied
+    slots; overflow = the unplaced live rows, > 0 exactly when distinct >
+    cap. Returns (n_groups, overflow, distinct)."""
+    gid, table, occ, ng, ovf = out
     tcap = 2 * cap
     keys = planes.T
-    distinct = torch.unique(keys[live], dim=0).shape[0] if live.any() else 0
-    placed = live & (gid < tcap)
+    require(bool(((gid >= 0) & (gid <= tcap)).all()), "gid out of range")
     require(bool((gid[~live] == tcap).all()), "dead rows got a slot")
-    require(bool((_slot_keys(table, gid, tcap).T[placed] == keys[placed]).all()),
+    placed = live & (gid < tcap)
+    pg = gid[placed].long()
+    require(bool((occ[pg] == 1).all()), "a placed row's slot is not occupied")
+    require(bool((table[:, pg].T == keys[placed]).all()),
             "a placed row's slot holds another key")
-    require(bool((occ[gid[placed].long()] == 1).all()),
-            "a placed row's slot is not occupied")
-    slot_keys = table.T[occ > 0]
-    require(torch.unique(slot_keys, dim=0).shape[0] == slot_keys.shape[0],
-            "one key holds two slots")
-    placed_keys = torch.unique(keys[placed], dim=0) if placed.any() else slot_keys
-    require(placed_keys.shape[0] == slot_keys.shape[0],
-            "occupied slots differ from the placed keys")
+    require(bool(((occ == 0) | (occ == 1)).all()), "occ is not 0 or 1")
+    occupied = occ == 1
+    used = torch.zeros_like(occupied)
+    used[pg] = True
+    require(torch.equal(used, occupied),
+            "occupied slots differ from the placed rows' slots")
+    require(bool((table[:, ~occupied] == 0).all()), "a free slot holds a key")
+    slot_keys = table[:, occupied].T
+    n_slots = slot_keys.shape[0]
+    require(_distinct(torch, slot_keys) == n_slots, "one key holds two slots")
+    unplaced = live & (gid == tcap)
+    require(not _any_shared(torch, slot_keys, keys[unplaced]),
+            "an unplaced row's key holds a slot")
+    distinct = _distinct(torch, keys[live])
     ngi, ovi = int(ng), int(ovf)
-    require(ngi == min(distinct, cap) == int(p[3]) == int(occ.sum()),
-            f"n_groups {ngi} vs distinct {distinct} / cap {cap} / plain "
-            f"{int(p[3])}")
-    require(ovi == int((live & (gid == tcap)).sum()),
+    require(ngi == min(distinct, cap) == n_slots,
+            f"n_groups {ngi} vs distinct {distinct} / cap {cap} / occupied "
+            f"slots {n_slots}")
+    require(ovi == int(unplaced.sum()),
             "overflow differs from the unplaced live rows")
-    require((ovi > 0) == (distinct > cap) == (int(p[4]) > 0),
+    require((ovi > 0) == (distinct > cap),
             "overflow signal differs from distinct > cap")
-    if distinct <= cap:
-        require(ovi == int(p[4]) == 0, "overflow without excess keys")
-        # no overflow: the group multisets agree exactly with the serial one
-        pk = p[1].T[p[2] > 0]
-        require(torch.equal(torch.unique(pk, dim=0),
-                            torch.unique(slot_keys.cpu(), dim=0)),
-                "group keys differ from the serial version")
-    return max(abs(ngi - int(p[3])), 0 if distinct > cap else abs(ovi - int(p[4])))
+    return ngi, ovi, distinct
 
 
-def check_join_insert(torch, slot0, live, tcap):
-    """Invariants: every live row sits in exactly one slot, reachable from
-    its slot0 over occupied slots; no dead row is in the table; as many
-    slots are occupied as in the serial version. Returns (slot_row, the
-    discrepancy: the sum of the occupied-slot gap to the serial version
-    and the rows that are missing, doubled, dead or unreachable)."""
+def check_group_insert(torch, planes, slot0, live, cap, shift=None,
+                       plain=True):
+    """group_invariants on the launch (the wrapper's plan, or the path
+    `shift` names); with `plain`, also against the serial version:
+    n_groups and the overflow signal equal, and without overflow the same
+    group keys. Returns the discrepancy to the serial version."""
     from presto_tpu_torch.ops import hash_kernels as hk
 
-    sr = hk.join_insert(slot0, live, tcap)
+    out = (hk.group_insert(planes, slot0, live, cap) if shift is None
+           else hk._group_insert_cuda(planes, slot0, live, cap, shift))
     torch.cuda.synchronize()
-    plain = hk.join_insert_plain(slot0.cpu(), live.cpu(), tcap)
-    sr_h, lv = sr.cpu(), live.cpu()
-    occ = sr_h >= 0
-    rows = sr_h[occ].long()
-    occ_gap = abs(int(occ.sum()) - int((plain >= 0).sum()))
+    ngi, ovi, distinct = group_invariants(torch, planes, live, cap, out)
+    if not plain:
+        return 0
+    p = hk.group_insert_plain(planes.cpu(), slot0.cpu(), live.cpu(), cap)
+    require(ngi == int(p[3]), f"n_groups {ngi} vs plain {int(p[3])}")
+    require((ovi > 0) == (int(p[4]) > 0),
+            "overflow signal differs from the serial version")
+    if distinct <= cap:
+        # no overflow: the group multisets agree exactly with the serial one
+        _, table, occ, _, _ = out
+        pk = p[1].T[p[2] > 0]
+        require(torch.equal(torch.unique(pk, dim=0),
+                            torch.unique(table[:, occ > 0].T.cpu(), dim=0)),
+                "group keys differ from the serial version")
+    return max(abs(ngi - int(p[3])),
+               0 if distinct > cap else abs(ovi - int(p[4])))
+
+
+def occupied_runs(torch, occ):
+    """run[t]: occupied slots in a row ending at slot t, cyclically (0 at
+    a free slot), from a cumulative max over the free slots' indices."""
+    tcap = occ.shape[0]
+    idx = torch.arange(tcap, device=occ.device)
+    free = torch.nonzero(~occ).flatten()
+    if free.numel() == 0:
+        return torch.full((tcap,), tcap, dtype=torch.long, device=occ.device)
+    last_free = torch.where(occ, -1, idx).cummax(0).values
+    # before the first free slot, the run comes round from the last one
+    last_free = torch.where(last_free < 0, free[-1] - tcap, last_free)
+    return idx - last_free
+
+
+def join_invariants(torch, slot0, live, sr):
+    """join_insert's contract, checked on the card with torch alone: every
+    live row sits in exactly one slot, reachable from its slot0 over
+    occupied slots (with wrap-around); no dead row is in the table; free
+    slots hold -1. Returns the rows missing, doubled, dead or unreachable,
+    and the occupied slots past the live rows."""
+    tcap = sr.shape[0]
+    occ = sr >= 0
+    require(bool((sr[~occ] == -1).all()), "a free slot is not -1")
+    rows = sr[occ].long()
     doubled = rows.numel() - torch.unique(rows).numel()
-    dead = int((~lv[rows]).sum())
-    slot_of = torch.full((lv.shape[0],), -1, dtype=torch.long)
+    dead = int((~live[rows]).sum())
+    slot_of = torch.full((live.shape[0],), -1, dtype=torch.long,
+                         device=sr.device)
     slot_of[rows] = torch.nonzero(occ).flatten()
-    placed = lv & (slot_of >= 0)
-    missing = int(lv.sum()) - int(placed.sum())
-    # run[t]: occupied slots in a row ending at slot t (cyclic); a row is
-    # reachable iff its slot's run covers the walk from its slot0
-    occ_l = occ.tolist()
-    run = [0] * tcap
-    for _ in range(2):
-        for t in range(tcap):
-            run[t] = run[t - 1] + 1 if occ_l[t] else 0
-    run = torch.tensor(run)
-    dist = (slot_of[placed] - slot0.cpu().long()[placed]) % tcap
+    placed = live & (slot_of >= 0)
+    n_live = int(live.sum())
+    missing = n_live - int(placed.sum())
+    extra = abs(rows.numel() - n_live)
+    run = occupied_runs(torch, occ)
+    dist = (slot_of[placed] - slot0.long()[placed]) % tcap
     unreachable = int((run[slot_of[placed]] <= dist).sum())
-    err = occ_gap + missing + doubled + dead + unreachable
-    require(err == 0, f"join_insert: occupied-slot gap {occ_gap}, rows "
-            f"missing {missing}, in two slots {doubled}, dead {dead}, "
-            f"unreachable from slot0 {unreachable}")
+    err = missing + doubled + dead + unreachable + extra
+    require(err == 0, f"join_insert: rows missing {missing}, in two slots "
+            f"{doubled}, dead {dead}, unreachable from slot0 {unreachable}; "
+            f"occupied slots past the live rows {extra}")
+    return err
+
+
+def check_join_insert(torch, slot0, live, tcap, shift=None, plain=True):
+    """join_invariants on the launch (the wrapper's plan, or the path
+    `shift` names); with `plain`, also as many occupied slots as the
+    serial version. Returns (slot_row, the discrepancy)."""
+    from presto_tpu_torch.ops import hash_kernels as hk
+
+    sr = (hk.join_insert(slot0, live, tcap) if shift is None
+          else hk._join_insert_cuda(slot0, live, tcap, shift))
+    torch.cuda.synchronize()
+    err = join_invariants(torch, slot0, live, sr)
+    if plain:
+        p = hk.join_insert_plain(slot0.cpu(), live.cpu(), tcap)
+        gap = abs(int((sr >= 0).sum()) - int((p >= 0).sum()))
+        require(gap == 0, f"join_insert: occupied-slot gap {gap} to the "
+                f"serial version")
+        err += gap
     return sr, err
 
 
@@ -366,6 +436,63 @@ def synthetic_planes(torch, rng, n, k, distinct, dev):
     return torch.from_numpy(np.ascontiguousarray(base[pick].T)).to(dev)
 
 
+# Forced range size of the partitioned cases: small tables, many ranges.
+SMALL_RANGE_BITS = 10
+
+
+def group_insert_cases():
+    """(label, rows, key planes, cap, distinct keys, path: None for the
+    wrapper's plan or the range shift, slot0: "hash", "range ends" (the
+    last slots of each range), "table end" (the last slots of the table,
+    chains wrap to slot 0) or "one slot")."""
+    m, r = HASH_CHECK_ROWS, SMALL_RANGE_BITS
+    return [("global, tickets", m, 3, 4096, 3000, None, "hash"),
+            ("global, distinct > cap", m, 3, 1024, 3000, None, "hash"),
+            ("global, one slot", 8192, 2, 256, 200, None, "one slot"),
+            ("global, no more rows than cap", 4096, 3, 8192, 3000, None,
+             "hash"),
+            ("chains across range ends", 20000, 2, 8192, 3000, r,
+             "range ends"),
+            ("chains wrap from tcap - 1 to 0", 20000, 1, 8192, 2000, r,
+             "table end"),
+            ("all rows on one slot", 8192, 2, 4096, 300, r, "one slot"),
+            ("distinct > cap", 30000, 1, 4096, 6000, r, "hash")]
+
+
+def join_insert_cases():
+    """(label, rows, tcap, range shift, slot0 as in group_insert_cases).
+    On one slot, more rows come to one range than its bucket holds."""
+    r = SMALL_RANGE_BITS
+    return [("chains across range ends", 8000, 1 << 14, r, "range ends"),
+            ("chains wrap from tcap - 1 to 0", 8000, 1 << 14, r, "table end"),
+            ("all rows on one slot", 2048, 1 << 12, r, "one slot"),
+            ("hashed", 30000, 1 << 16, r, "hash")]
+
+
+def boundary_slots(torch, rng, planes, tcap, shift, where, n=None):
+    """slot0 for a case of group_insert_cases (from the key planes, so
+    that equal keys share a slot) or of join_insert_cases (n rows)."""
+    from presto_tpu_torch.ops.hashing import hash_columns, slot_hash
+
+    dev = torch.device("cuda")
+    if planes is not None:
+        h = hash_columns(list(planes))
+        n = planes.shape[1]
+    else:
+        h = torch.from_numpy(rng.integers(0, 2**62, n)).to(dev)
+    if where == "hash":
+        return slot_hash(h, tcap)
+    if where == "one slot":
+        # the last slot of a range (of the first one on the global path)
+        return torch.full((n,), ((1 << (shift or 10)) - 1) % tcap,
+                          dtype=torch.int32, device=dev)
+    if where == "range ends":
+        ranges = tcap >> shift
+        ends = ((h % ranges) + 1) * (1 << shift) - 1
+        return (ends - (h // ranges) % 48).to(torch.int32)
+    return (tcap - 1 - h % 64).to(torch.int32)  # "table end"
+
+
 def phase_kernels(torch):
     import numpy as np
 
@@ -387,20 +514,26 @@ def phase_kernels(torch):
 
     m = HASH_CHECK_ROWS
     gi_err = 0
-    # (rows, key planes, cap, distinct keys, all rows on one slot)
-    for n_rows, k, cap, distinct, collide in ((m, 3, 4096, 3000, False),
-                                              (m, 3, 1024, 3000, False),
-                                              (8192, 2, 256, 200, True)):
+    for label, n_rows, k, cap, distinct, shift, where in group_insert_cases():
         planes = synthetic_planes(torch, rng, n_rows, k, distinct, dev)
         live = torch.from_numpy(rng.random(n_rows) < 0.9).to(dev)
-        slot0 = (torch.zeros(n_rows, dtype=torch.int32, device=dev) if collide
-                 else slot_hash(hash_columns(list(planes)), 2 * cap))
-        gi_err = max(gi_err, check_group_insert(torch, planes, slot0, live, cap))
-        print(f"kernel group_insert: n={n_rows} K={k} cap={cap} "
-              f"distinct={distinct}{' one-slot collisions' if collide else ''}"
-              f" invariants hold (rows cut: the plain version is serial)")
+        slot0 = boundary_slots(torch, rng, planes, 2 * cap, shift, where)
+        gi_err = max(gi_err, check_group_insert(torch, planes, slot0, live,
+                                                cap, shift))
+        path = "wrapper's plan" if shift is None else f"ranges of 2^{shift}"
+        print(f"kernel group_insert [{label}]: n={n_rows} K={k} cap={cap} "
+              f"distinct={distinct} ({path}): invariants hold, equal to "
+              f"plain (rows cut: the plain version is serial)")
+    ji_err = 0
+    for label, n_rows, tcap, shift, where in join_insert_cases():
+        slot0 = boundary_slots(torch, rng, None, tcap, shift, where, n_rows)
+        live = torch.from_numpy(rng.random(n_rows) < 0.9).to(dev)
+        _, err = check_join_insert(torch, slot0, live, tcap, shift)
+        ji_err = max(ji_err, err)
+        print(f"kernel join_insert [{label}]: n={n_rows} tcap={tcap} (ranges "
+              f"of 2^{shift}): invariants hold, as many slots as plain")
 
-    ji_err = jp_err = 0
+    jp_err = 0
     # (build rows, distinct build keys, fanouts, all rows on one slot); the
     # third case has about 46 matches a key, so F = 16 and 32 overflow and
     # F = 32 and 64 take the kernel's branch for fanouts past 16
@@ -713,23 +846,21 @@ def distinct_bytes(*ts):
     return sum(seen.values())
 
 
-def kernel_alone_ms(torch, launch, prep=None, flush=None, reps=50):
+def kernel_alone_ms(torch, launch, flush=None, reps=50):
     """Median CUDA-event time of one bare launch, events around each
-    launch. Before each: `prep` (resetting outputs the kernel updates),
-    `flush` (evicting the L2: the cold reading; without it the inputs stay
-    where the previous launch left them) and a spin kernel that keeps the
-    card busy while the host enqueues, so no host time falls between the
-    events. (Events around back-to-back launches would time the host:
-    one Python-side launch takes longer than these kernels.)"""
+    launch. Before each: `flush` (evicting the L2: the cold reading;
+    without it the inputs stay where the previous launch left them) and a
+    spin kernel that keeps the card busy while the host enqueues, so no
+    host time falls between the events. (Events around back-to-back
+    launches would time the host: one Python-side launch takes longer
+    than these kernels.) Every launch writes or zeroes all of its outputs
+    itself, so nothing is reset between launches, and the time covers
+    everything the C launch does, its memsets included."""
     for _ in range(3):
-        if prep:
-            prep()
         launch()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        if prep:
-            prep()
         if flush:
             flush()
         torch.cuda._sleep(SPIN_CYCLES)
@@ -763,47 +894,51 @@ def _bare_grouped_sums(torch, lib, sp, gid, states, g):
     def launch():
         for _arr, args in calls:
             _rc(lib.grouped_sums_launch(*args), "grouped_sums")
-    return (launch, None, distinct_bytes(gid, *_tensors(parts))
+    return (launch, distinct_bytes(gid, *_tensors(parts))
             + out.numel() * 8, f"n={n} S={len(states)} G={g}", out)
 
 
-def _bare_group_insert(torch, lib, sp, planes, slot0, live, cap):
+def _path(shift):
+    return "global" if not shift else f"ranges of 2^{shift} slots"
+
+
+def _bare_group_insert(torch, lib, sp, planes, slot0, live, cap, shift=None):
+    """The launch zeroes or writes every output itself."""
+    from presto_tpu_torch.ops import hash_kernels as hk
+
     k, n = planes.shape
     tcap = 2 * cap
-    dev = planes.device
-    gid = torch.empty(n, dtype=torch.int32, device=dev)
-    table = torch.zeros(k, tcap, dtype=torch.int64, device=dev)
-    occ = torch.zeros(tcap, dtype=torch.int32, device=dev)
-    state = torch.zeros(tcap, dtype=torch.int32, device=dev)
-    stat = torch.zeros(3, dtype=torch.int32, device=dev)
-
-    def prep():
-        for t in (table, occ, state, stat):
-            t.zero_()
-
+    if shift is None:
+        shift = hk.group_insert_plan(n, k, cap)
+    gid, table, occ, stat, scratch = hk.group_insert_buffers(
+        k, n, cap, shift, planes.device)
     args = (slot0.data_ptr(), planes.data_ptr(), live.data_ptr(),
             gid.data_ptr(), table.data_ptr(), occ.data_ptr(),
-            state.data_ptr(), stat.data_ptr(), n, k, cap, sp)
+            stat.data_ptr(), hk._ptr(scratch), n, k, cap, shift, sp)
 
     def launch():
         _rc(lib.group_insert_launch(*args), "group_insert")
-    return (launch, prep, distinct_bytes(planes, slot0, live) + n * 4
-            + k * tcap * 8 + tcap * 4 + 8, f"n={n} K={k} cap={cap}",
-            (gid, table, occ, stat))
+    return (launch, distinct_bytes(planes, slot0, live) + n * 4
+            + k * tcap * 8 + tcap * 4 + 8,
+            f"n={n} K={k} cap={cap}, {_path(shift)}",
+            (gid, table, occ, stat[0], stat[1]))
 
 
-def _bare_join_insert(torch, lib, sp, slot0, live, tcap):
+def _bare_join_insert(torch, lib, sp, slot0, live, tcap, shift=None):
+    """The launch writes every slot (its -1 fill included in its time)."""
+    from presto_tpu_torch.ops import hash_kernels as hk
+
     n = slot0.shape[0]
-    slot_row = torch.full((tcap,), -1, dtype=torch.int32, device=slot0.device)
-
-    args = (slot0.data_ptr(), live.data_ptr(), slot_row.data_ptr(), n, tcap,
-            sp)
+    if shift is None:
+        shift = hk.join_insert_plan(tcap)
+    slot_row, scratch = hk.join_insert_buffers(n, tcap, shift, slot0.device)
+    args = (slot0.data_ptr(), live.data_ptr(), slot_row.data_ptr(),
+            hk._ptr(scratch), n, tcap, shift, sp)
 
     def launch():
         _rc(lib.join_insert_launch(*args), "join_insert")
-    return (launch, lambda: slot_row.fill_(-1),
-            distinct_bytes(slot0, live) + tcap * 4, f"n={n} tcap={tcap}",
-            slot_row)
+    return (launch, distinct_bytes(slot0, live) + tcap * 4,
+            f"n={n} tcap={tcap}, {_path(shift)}", slot_row)
 
 
 def _bare_join_probe(torch, lib, sp, slot0, pkeys, plive, slot_row, bkeys, f):
@@ -820,17 +955,16 @@ def _bare_join_probe(torch, lib, sp, slot0, pkeys, plive, slot_row, bkeys, f):
 
     def launch():
         _rc(lib.join_probe_launch(*args), "join_probe")
-    return (launch, None, distinct_bytes(slot0, pkeys, plive, slot_row, bkeys)
+    return (launch, distinct_bytes(slot0, pkeys, plive, slot_row, bkeys)
             + n * f * 4 + n * 4 + 4,
             f"n={n} K={k} F={f} build={bkeys.shape[1]} "
             f"tcap={slot_row.shape[0]}", (mm, cnt, stat))
 
 
 def bare_launches(torch, inputs):
-    """name → (launch, prep, bytes, shape, outputs): the bare
-    `lib.*_launch` call of each kernel on the largest inputs the query
-    phase handed its launcher, with outputs allocated once; `prep` resets
-    the outputs a kernel must find empty; bytes are the distinct inputs
+    """name → (launch, bytes, shape, outputs): the bare `lib.*_launch`
+    call of each kernel on the largest inputs the query phase handed its
+    launcher, with outputs allocated once; bytes are the distinct inputs
     read once plus the outputs written once."""
     from presto_tpu_torch.kernels._build import library, stream_ptr
 
@@ -864,18 +998,134 @@ def l2_flush(torch):
     return flush, cuda_ms(torch, flush, iters=20)
 
 
+# Large shapes of the two inserts, built on the card from a fixed seed
+# (synthetic inputs of the timing phase, not query inputs):
+# - group_insert: TPC-H Q18's GROUP BY l_orderkey over lineitem at SF 1:
+#   6,001,215 live rows, K = 1, 1,500,000 orders of 1-7 lines listed
+#   together (runs of equal keys), cap 2^21; and cap 2^20 (overflow);
+# - join_insert: the build side of Q3's orders join at SF 10: 15,000,000
+#   unique keys, live where o_orderdate < 1995-03-15 over the generator's
+#   dates (about 48.6 %), tcap = 2 x round_up_capacity(15,000,000).
+LARGE_SEED = 20261017
+Q18_LINES, Q18_ORDERS = 6_001_215, 1_500_000
+Q18_CAPS = (1 << 21, 1 << 20)
+Q3_SF10_ORDERS = 15_000_000
+
+
+def large_group_input(torch):
+    """(planes int64[1, n], live) of the Q18 shape: each order's lines
+    1-7 (uniform), then the first orders short of 7 lines (or over 1)
+    given one more (or one fewer) so that the lines total Q18_LINES."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(LARGE_SEED)
+    lines = torch.randint(1, 8, (Q18_ORDERS,), generator=g, device=dev)
+    diff = Q18_LINES - int(lines.sum())
+    if diff > 0:
+        lines[torch.nonzero(lines < 7).flatten()[:diff]] += 1
+    elif diff < 0:
+        lines[torch.nonzero(lines > 1).flatten()[:-diff]] -= 1
+    okey = (torch.arange(Q18_ORDERS, device=dev) + 1) * 4  # sparse, sorted
+    planes = torch.repeat_interleave(okey, lines).view(1, -1)
+    require(planes.shape[1] == Q18_LINES, "Q18 shape: wrong row count")
+    return planes, torch.ones(Q18_LINES, dtype=torch.bool, device=dev)
+
+
+def large_join_input(torch):
+    """(slot0, live, tcap) of Q3's orders build side at SF 10."""
+    from presto_tpu_torch.batch import round_up_capacity
+    from presto_tpu_torch.catalog.tpch import _EPOCH_1992, _EPOCH_1998_END
+    from presto_tpu_torch.ops.hashing import hash_columns, slot_hash
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(LARGE_SEED + 1)
+    n = Q3_SF10_ORDERS
+    okey = (torch.arange(n, device=dev) + 1) * 4
+    odate = torch.randint(_EPOCH_1992, _EPOCH_1998_END - 151, (n,),
+                          generator=g, device=dev)
+    tcap = 2 * round_up_capacity(n, minimum=64)
+    return (slot_hash(hash_columns([okey]), tcap),
+            odate < _days(1995, 3, 15), tcap)
+
+
+def _large_row(torch, bare, launcher, wrapper):
+    """Kernel alone (the inputs exceed the L2, so the warm reading is
+    cold), launcher and wrapper of one large shape."""
+    launch, b, shape, _outs = bare
+    require(b >= L2_BYTES, f"large shape {shape} fits in the L2")
+    return {"shape": shape, "bytes": b,
+            "bound": b / HBM_BYTES_PER_S * 1e3,
+            "ms": kernel_alone_ms(torch, launch),
+            "launcher": cuda_ms(torch, launcher, iters=20),
+            "wrapper": cuda_ms(torch, wrapper, iters=20)}
+
+
+def time_large(torch):
+    """Check and time group_insert and join_insert at the large shapes.
+    Each bare launch's result, and the wrapper's, must hold the kernel's
+    invariants (group_invariants, join_invariants: the serial plain
+    versions are not run at these sizes)."""
+    from presto_tpu_torch.kernels._build import library, stream_ptr
+    from presto_tpu_torch.ops import hash_kernels as hk
+    from presto_tpu_torch.ops.hashing import hash_columns, slot_hash
+
+    lib = library("hash_table")
+    sp = stream_ptr(torch.device("cuda"))
+    rows = {"group_insert": [], "join_insert": []}
+    planes, live = large_group_input(torch)
+    for cap in Q18_CAPS:
+        slot0 = slot_hash(hash_columns(list(planes)), 2 * cap)
+        bare = _bare_group_insert(torch, lib, sp, planes, slot0, live, cap)
+        bare[0]()
+        torch.cuda.synchronize()
+        ng, ovf, distinct = group_invariants(torch, planes, live, cap, bare[3])
+        group_invariants(torch, planes, live, cap,
+                         hk.group_insert(planes, slot0, live, cap))
+        r = _large_row(torch, bare,
+                       lambda: hk._group_insert_cuda(planes, slot0, live, cap),
+                       lambda: hk.group_insert(planes, slot0, live, cap))
+        r["check"] = f"distinct={distinct} n_groups={ng} overflow={ovf}"
+        rows["group_insert"].append(r)
+        del bare
+    del planes, live, slot0
+    slot0, live, tcap = large_join_input(torch)
+    bare = _bare_join_insert(torch, lib, sp, slot0, live, tcap)
+    bare[0]()
+    torch.cuda.synchronize()
+    join_invariants(torch, slot0, live, bare[3])
+    join_invariants(torch, slot0, live, hk.join_insert(slot0, live, tcap))
+    r = _large_row(torch, bare,
+                   lambda: hk._join_insert_cuda(slot0, live, tcap),
+                   lambda: hk.join_insert(slot0, live, tcap))
+    r["check"] = f"live={int(live.sum())}"
+    rows["join_insert"].append(r)
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"timing {name} [large: {r['shape']}; {r['check']}]: "
+                  f"kernel alone {r['ms']:.4f} ms (inputs and outputs exceed "
+                  f"the L2: the warm reading is cold); launcher "
+                  f"{r['launcher']:.4f} ms; wrapper {r['wrapper']:.4f} ms; "
+                  f"plain: not run (serial); bound {r['bound']:.5f} ms "
+                  f"({r['bytes']} bytes); invariants hold")
+            require(r["ms"] >= r["bound"], f"{name} large: kernel-alone time "
+                    f"{r['ms']:.5f} ms beats its byte bound")
+    return rows
+
+
 def phase_timing(torch, inputs, errs):
     """Each kernel on the inputs the query phase handed its launcher:
     - kernel alone: the bare `lib.*_launch` on outputs allocated once
       (`bare_launches`), warm (inputs as the last launch left them in L2)
       and, for kernels whose inputs and outputs fit under the L2, cold (the
       L2 flushed before each launch); the cold time is the one held
-      against the byte bound;
+      against the byte bound. Each reading covers everything the C launch
+      does, its memsets included, since the bound counts those bytes;
     - launcher: the module's private `_*_cuda` (the kernel plus the
-      allocation and fill of its outputs);
+      allocation of its outputs);
     - wrapper: the public function (plus its input conversions);
     - plain: the plain version on the same inputs; for grouped_sums also
-      one `index_add_` call on the states stacked as int64."""
+      one `index_add_` call on the states stacked as int64.
+    Then group_insert and join_insert at their large shapes (`time_large`),
+    where the serial plain versions are not run."""
     from presto_tpu_torch.ops import groupby_kernels as gk
     from presto_tpu_torch.ops import hash_kernels as hk
 
@@ -884,9 +1134,9 @@ def phase_timing(torch, inputs, errs):
           f"{flush_ms:.4f} ms, outside the events of the cold launches")
     bare = bare_launches(torch, inputs)
     rows = {}
-    for name, (launch, prep, b, shape, _outs) in bare.items():
-        warm = kernel_alone_ms(torch, launch, prep)
-        cold = (kernel_alone_ms(torch, launch, prep, flush)
+    for name, (launch, b, shape, _outs) in bare.items():
+        warm = kernel_alone_ms(torch, launch)
+        cold = (kernel_alone_ms(torch, launch, flush)
                 if b < L2_BYTES else None)
         rows[name] = {"ms_warm": warm, "ms_cold": cold, "bytes": b,
                       "shape": shape}
@@ -965,6 +1215,8 @@ def phase_timing(torch, inputs, errs):
                 require(r[what] >= r["bound"],
                         f"{name}: kernel-alone time {what} {r[what]:.5f} ms "
                         f"beats its byte bound {r['bound']:.5f} ms")
+    for name, rs in time_large(torch).items():
+        rows[name]["large"] = rs
     return rows
 
 
@@ -999,7 +1251,11 @@ def main() -> int:
             "cold": r["ms_cold"] is not None, "ms_warm": r["ms_warm"],
             "launcher_ms": r["launcher"], "wrapper_ms": r["wrapper"],
             "plain_ms": r["plain"], "bound_ms": r["bound"],
-            "bound_by": "bytes", "library_ms": r["library"]})
+            "bound_by": "bytes", "library_ms": r["library"],
+            "large": [{"shape": x["shape"], "ms": x["ms"],
+                       "bound_ms": x["bound"], "launcher_ms": x["launcher"],
+                       "wrapper_ms": x["wrapper"], "plain_ms": None}
+                      for x in r.get("large", [])]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,30 +4,54 @@
 // Replaces: presto_tpu/ops/pallas_hash.py group_insert
 // (_group_insert_kernel), join_insert (_join_insert_kernel) and join_probe
 // (_join_probe_kernel). On the TPU each is one serial loop over the rows
-// (grid=(1,)) with the table in one VMEM ref; here every row has a thread.
+// (grid=(1,)) with the table in one VMEM ref; here rows go in parallel.
 //
-// Bound on this card: bytes, and in practice latency. Each row reads its
-// K key planes and slot0 once and walks a short probe chain (load factor
-// <= 50%) of dependent, uncoalesced 4- and 8-byte loads; there is almost no
-// arithmetic. The bound used for reporting is the bytes of inputs read once
-// plus outputs written once, over 3.35 TB/s.
+// Bound on this card: bytes. Each row reads its key planes and slot0 once;
+// the inserts write their whole table (gid, table and occ, or slot_row)
+// once, and there is almost no arithmetic. The bound used for reporting is
+// the bytes of inputs read once plus outputs written once, over 3.35 TB/s.
+// What keeps the inserts from it is latency and scattered traffic: probe
+// chains are dependent, uncoalesced 4- and 8-byte accesses, a claim is an
+// atomic on a random slot, and on the partitioned path each row is stored
+// once more, to a random bucket (the scatter is that path's costliest
+// pass at the large shapes, PERF.md).
 //
-// Design:
-// - group_insert: one thread per live row walks (slot0 + j) & (tcap - 1).
-//   A per-slot state word goes EMPTY -> CLAIMING -> READY (or DEAD) by
-//   atomicCAS. The claiming thread writes the K key planes, takes a ticket
-//   from the group counter, issues __threadfence(), then publishes READY if
-//   its ticket is < cap, else DEAD. A thread that meets a CLAIMING slot
-//   spins until it is published, then compares keys (L2 loads, after a
-//   fence). A row whose key sits in a DEAD slot is unplaced; other keys
-//   probe past DEAD slots, and DEAD slots stay out of `occ`. Each distinct
-//   key claims exactly one slot (threads with one key walk one sequence),
-//   so n_groups = min(distinct, cap) and overflow > 0 <=> more than cap
-//   distinct keys: the contract of the serial kernel. Slots, and so group
-//   order, differ from the serial kernel's; `table` keeps a DEAD slot's key
-//   with occ = 0.
-// - join_insert: one thread per live row claims the first slot of its
-//   chain whose row is -1 with atomicCAS. Chain order is nondeterministic.
+// Each insert has two paths; the caller's launch plan (ops/hash_kernels.py)
+// picks one by size, through `shift`:
+// - global (shift 0): the launch zeroes (or fills with -1) the outputs with
+//   one cudaMemsetAsync, then one thread per live row walks (slot0 + j) &
+//   (tcap - 1), with the table in the 50 MB L2 when it fits.
+// - partitioned by slot range (shift > 0; a range is 2^shift slots): a
+//   count pass and a scatter put (row, slot0) of the live rows into one
+//   packed bucket per range, then one block per range inserts its bucket
+//   in shared memory and writes its range of the table once, coalesced,
+//   with no fill. A row whose chain runs past the end of its range goes to
+//   a spill list, which the global kernel then inserts into the finished
+//   table: ranges only grow, so every chain stays reachable.
+//
+// - group_insert: `occ` is the slot's state word (0 empty, 1 ready, 2
+//   claiming; no separate state array). A row claims an empty slot with
+//   atomicCAS, writes its key planes and publishes the slot with a release
+//   store; other rows read the state with acquire loads before comparing
+//   keys (no fences), and wait on a claiming slot, sleeping between reads:
+//   without the sleep, lanes of a warp waiting on a claim by another lane
+//   of their warp hung the card. Each new key takes a ticket; a key whose
+//   ticket is >= cap is refused: the claimer frees the slot again (no row
+//   has walked past a claiming slot, so no chain breaks) and its rows are
+//   unplaced. So exactly min(distinct, cap) keys hold a slot, overflow
+//   counts the unplaced live rows and is > 0 <=> more than cap distinct
+//   keys, and the table is zero wherever occ is 0: the contract of the
+//   serial kernel. When no more than cap rows come in, every key fits and
+//   no ticket is taken: new keys are counted per block. n_groups =
+//   min(tickets, cap), written by the last block to finish; unplaced rows
+//   are counted per block. Lanes of a warp with the same key probe once
+//   (one leader, found by __match_any_sync), since lineitem lists an
+//   order's lines together. On the partitioned path a range block numbers
+//   its new keys by a block scan and takes their tickets with one atomic.
+//   Slots, and so group order, differ from the serial kernel's.
+// - join_insert: one claim (atomicCAS of -1 to the row) at the first free
+//   slot of the row's chain, in L2 or in the block's shared range. Chain
+//   order is nondeterministic.
 // - join_probe (redesigned for Hopper): one thread per probe row walks its
 //   chain; the table (slot_row, then the build keys by row) is small next
 //   to the 50 MB L2 and is read again by every probe batch of a query, so
@@ -43,91 +67,501 @@
 //   Match order within a row follows chain order, so it may differ from
 //   the serial kernel's.
 //
-// The callers allocate every output; group_insert's and join_insert's
-// are zeroed or filled by them; of join_probe's only the one-word overflow
-// counter needs a fill, which its launcher issues. The kernels allocate
-// nothing and do not synchronise.
+// The callers allocate every output and scratch buffer; the launches fill
+// what needs a fill themselves. The kernels allocate nothing and do not
+// synchronise.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
-constexpr int kEmpty = 0, kClaiming = 1, kReady = 2, kDead = 3;
+constexpr unsigned kFull = 0xffffffffu;
+// group_insert slot states, held in occ
+constexpr int kEmpty = 0, kReady = 1, kClaiming = 2;
+// a row waiting on a slot that another row is claiming sleeps this long
+// between reads, so that the claimer, maybe a lane of its own warp, runs
+constexpr unsigned kWaitNs = 32;
+// join_insert rows a thread of the global kernel takes at once (their
+// claims independent, in flight together)
+constexpr int kJoinRows = 1;
+// range kernels: threads a block, rows a count or scatter thread holds in
+// registers
+constexpr int kRangeThreads = 1024;
+constexpr int kRangeRows = 8;
+constexpr int kMaxRanges = 8192;
+constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in ceiling on sm_90
 
 inline int blocks_for(int n) {
   int b = (n + kThreads - 1) / kThreads;
   return b < 1 ? 1 : (b > kMaxBlocks ? kMaxBlocks : b);
 }
 
-__global__ void group_insert_kernel(const int* __restrict__ slot0,
-                                    const long long* __restrict__ keys,
-                                    const bool* __restrict__ live,
-                                    int* __restrict__ gid, long long* table,
-                                    int* __restrict__ occ, int* state,
-                                    int* stat, int n, int K, int cap) {
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// counter += (lanes calling together); each caller gets its own old value.
+// One atomic per warp: the leader adds the count, then broadcasts. Not for
+// code beside which other lanes of the warp may wait on the caller (a
+// claimed slot): with a claimer taking its ticket this way, the global
+// group_insert kernel hung on the card.
+__device__ __forceinline__ int warp_ticket(int* counter) {
+  cg::coalesced_group g = cg::coalesced_threads();
+  int base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(counter, (int)g.size());
+  return g.shfl(base, 0) + (int)g.thread_rank();
+}
+
+// Exclusive prefix sum of v over the block (every thread calls it).
+__device__ int block_exclusive_scan(int v) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, off);
+      if (lane >= off) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  return (warp ? warp_sums[warp - 1] : 0) + x - v;
+}
+
+// The lanes of `act` whose row has the same slot0 and key planes as this
+// lane's (every lane of `act` calls it with its own row).
+__device__ __forceinline__ unsigned same_key_lanes(unsigned act, int s0,
+                                                   const long long* keys,
+                                                   long long n, int row,
+                                                   int K) {
+  unsigned peers = __match_any_sync(act, s0);
+  for (int k = 0; k < K; ++k)
+    peers &= __match_any_sync(act, keys[k * n + row]);
+  return peers;
+}
+
+// stat int32[4]: n_groups, overflow (unplaced live rows), tickets (keys
+// that claimed a slot), blocks done.
+//
+// One thread per row (or per entry of a spill list). Lanes of a warp with
+// the same key (Q18's lineitem lists an order's lines together) probe
+// once: the lowest of them walks the chain and hands the slot to the
+// others, so that lanes of one warp do not wait on one another's claim of
+// one slot. kTickets: take a ticket per new key and refuse keys past cap;
+// without it (no more than cap rows), count new keys per block.
+template <bool kTickets>
+__global__ void __launch_bounds__(kThreads)
+    group_insert_kernel(const int* __restrict__ slot0,
+                        const long long* __restrict__ keys,
+                        const bool* __restrict__ live,
+                        const int2* __restrict__ list,
+                        const int* __restrict__ list_n,
+                        int* __restrict__ gid, long long* table, int* occ,
+                        int* stat, int n, int K, int cap) {
+  __shared__ int acc[2];  // new keys, unplaced rows
+  if (threadIdx.x < 2) acc[threadIdx.x] = 0;
+  __syncthreads();
   const int tcap = 2 * cap;
   const int mask = tcap - 1;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    if (!live[i]) {
-      gid[i] = tcap;
-      continue;
+  const int lane = threadIdx.x & 31;
+  const int count = list ? *list_n : n;
+  int claims = 0, unplaced = 0;
+  // a warp's lanes go round this loop together (the trip count is the
+  // block's), so that they can match keys
+  for (int first = blockIdx.x * blockDim.x; first < count;
+       first += gridDim.x * blockDim.x) {
+    const int i = first + threadIdx.x;
+    int row = -1, s0 = 0;
+    if (i < count) {
+      if (list) {
+        const int2 e = list[i];
+        row = e.x;
+        s0 = e.y;
+      } else if (live[i]) {
+        row = i;
+        s0 = slot0[i];
+      } else {
+        gid[i] = tcap;
+      }
     }
-    const int s0 = slot0[i];
+    const unsigned act = __ballot_sync(kFull, row >= 0);
+    if (row < 0) continue;
+    const unsigned peers = same_key_lanes(act, s0, keys, n, row, K);
+    const int leader = __ffs(peers) - 1;
     int out = tcap;
-    int j = 0;
-    while (j < tcap) {
-      const int s = (s0 + j) & mask;
-      const int st = *(volatile int*)&state[s];
-      if (st == kEmpty) {
-        if (atomicCAS(&state[s], kEmpty, kClaiming) != kEmpty) continue;
-        for (int k = 0; k < K; ++k)
-          table[(long long)k * tcap + s] = keys[(long long)k * n + i];
-        const int ticket = atomicAdd(&stat[2], 1);
-        __threadfence();
-        if (ticket < cap) {
-          occ[s] = 1;
-          atomicAdd(&stat[0], 1);
+    if (lane == leader) {
+      const long long key0 = K ? keys[row] : 0;
+      for (int j = 0; j < tcap;) {
+        const int s = (s0 + j) & mask;
+        const int st = ld_acquire(occ + s);
+        if (st == kEmpty) {
+          if (atomicCAS(occ + s, kEmpty, kClaiming) != kEmpty) continue;
+          if (kTickets && atomicAdd(stat + 2, 1) >= cap) {
+            st_relaxed(occ + s, kEmpty);  // refused: free the slot again
+            break;
+          }
+          if (K) table[s] = key0;
+          for (int k = 1; k < K; ++k)
+            table[(long long)k * tcap + s] = keys[(long long)k * n + row];
+          st_release(occ + s, kReady);
+          ++claims;
           out = s;
-          atomicExch(&state[s], kReady);
-        } else {
-          atomicExch(&state[s], kDead);
+          break;
         }
+        if (st == kClaiming) {  // wait until it is published
+          __nanosleep(kWaitNs);
+          continue;
+        }
+        bool eq = !K || table[s] == key0;
+        for (int k = 1; k < K && eq; ++k)
+          eq = table[(long long)k * tcap + s] == keys[(long long)k * n + row];
+        if (eq) {
+          out = s;
+          break;
+        }
+        ++j;
+      }
+    }
+    out = __shfl_sync(peers, out, leader);
+    gid[row] = out;
+    unplaced += out == tcap;
+  }
+  if (claims) atomicAdd(&acc[0], claims);
+  if (unplaced) atomicAdd(&acc[1], unplaced);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (!kTickets && acc[0]) atomicAdd(stat + 2, acc[0]);
+    if (acc[1]) atomicAdd(stat + 1, acc[1]);
+    __threadfence();
+    if (atomicAdd(stat + 3, 1) == (int)gridDim.x - 1) {  // the last block
+      __threadfence();
+      const int t = atomicAdd(stat + 2, 0);
+      stat[0] = t < cap ? t : cap;
+    }
+  }
+}
+
+// One thread per live row (or spill-list entry) claims the first free slot
+// of its chain; kJoinRows rows a thread, their claims in flight together.
+__global__ void __launch_bounds__(kThreads)
+    join_insert_kernel(const int* __restrict__ slot0,
+                       const bool* __restrict__ live,
+                       const int2* __restrict__ list,
+                       const int* __restrict__ list_n, int* slot_row, int n,
+                       int tcap) {
+  const int mask = tcap - 1;
+  const int count = list ? *list_n : n;
+  const int stride = gridDim.x * blockDim.x;
+  for (int first = blockIdx.x * blockDim.x + threadIdx.x; first < count;
+       first += stride * kJoinRows) {
+    int row[kJoinRows], s[kJoinRows];
+    bool todo[kJoinRows];
+#pragma unroll
+    for (int r = 0; r < kJoinRows; ++r) {
+      const int i = first + r * stride;
+      todo[r] = false;
+      if (i < count) {
+        if (list) {
+          const int2 e = list[i];
+          row[r] = e.x;
+          s[r] = e.y;
+          todo[r] = true;
+        } else if (live[i]) {
+          row[r] = i;
+          s[r] = slot0[i];
+          todo[r] = true;
+        }
+      }
+    }
+    for (int j = 0; j < tcap; ++j) {
+      bool more = false;
+#pragma unroll
+      for (int r = 0; r < kJoinRows; ++r) {
+        if (!todo[r]) continue;
+        if (atomicCAS(slot_row + s[r], -1, row[r]) == -1) {
+          todo[r] = false;
+        } else {
+          s[r] = (s[r] + 1) & mask;
+          more = true;
+        }
+      }
+      if (!more) break;
+    }
+  }
+}
+
+// Partitioned path, pass 1: live rows per range, then the last block
+// turns the counts into bucket offsets[P + 1] and scatter cursors[P].
+// hdr: [0] blocks done, [1] spill count, [2, 2 + P) counts, zeroed by the
+// launch. Block 0 zeroes stat (if any) for the passes that follow. A
+// thread holds kRangeRows rows at once, their loads in flight together.
+__global__ void __launch_bounds__(kRangeThreads)
+    range_count_kernel(const int* __restrict__ slot0,
+                       const bool* __restrict__ live, int* hdr, int* cursor,
+                       int* offsets, int* stat, int n, int shift, int P) {
+  extern __shared__ int hist[];
+  __shared__ bool last;
+  for (int b = threadIdx.x; b < P; b += blockDim.x) hist[b] = 0;
+  if (stat && blockIdx.x == 0 && threadIdx.x < 4) stat[threadIdx.x] = 0;
+  __syncthreads();
+  const int tile = kRangeRows * blockDim.x;
+  for (long long t0 = (long long)blockIdx.x * tile; t0 < n;
+       t0 += (long long)gridDim.x * tile) {
+    int s[kRangeRows];
+    bool l[kRangeRows];
+#pragma unroll
+    for (int q = 0; q < kRangeRows; ++q) {
+      const long long i = t0 + q * blockDim.x + threadIdx.x;
+      l[q] = i < n && live[i];
+      s[q] = i < n ? slot0[i] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kRangeRows; ++q)
+      if (l[q]) atomicAdd(&hist[s[q] >> shift], 1);
+  }
+  __syncthreads();
+  int* counts = hdr + 2;
+  for (int b = threadIdx.x; b < P; b += blockDim.x)
+    if (hist[b]) atomicAdd(counts + b, hist[b]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(hdr, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int per = (P + blockDim.x - 1) / blockDim.x;
+  const int b0 = min(P, (int)threadIdx.x * per), b1 = min(P, b0 + per);
+  int sum = 0;
+  for (int b = b0; b < b1; ++b) sum += __ldcg(counts + b);
+  int at = block_exclusive_scan(sum);
+  for (int b = b0; b < b1; ++b) {
+    offsets[b] = cursor[b] = at;
+    at += __ldcg(counts + b);
+  }
+  if (threadIdx.x == blockDim.x - 1) offsets[P] = at;
+}
+
+// Partitioned path, the scatter: each block takes tiles of kRangeRows *
+// blockDim rows, counts them per range in shared memory, reserves each
+// range's place in its bucket with one atomic on the range's cursor, then
+// writes (row, slot0) of every live row there: the buckets lie packed,
+// one after another. Dead rows get gid = dead_gid if gid.
+__global__ void __launch_bounds__(kRangeThreads)
+    range_scatter_kernel(const int* __restrict__ slot0,
+                         const bool* __restrict__ live, int* cursor,
+                         int2* pairs, int* gid, int dead_gid, int n,
+                         int shift, int P) {
+  extern __shared__ int sh[];
+  int* cnt = sh;
+  int* base = sh + P;
+  const int tile = kRangeRows * blockDim.x;
+  for (long long t0 = (long long)blockIdx.x * tile; t0 < n;
+       t0 += (long long)gridDim.x * tile) {
+    for (int b = threadIdx.x; b < P; b += blockDim.x) cnt[b] = 0;
+    __syncthreads();
+    int s[kRangeRows];
+    bool l[kRangeRows];
+#pragma unroll
+    for (int q = 0; q < kRangeRows; ++q) {
+      const long long i = t0 + q * blockDim.x + threadIdx.x;
+      l[q] = i < n && live[i];
+      s[q] = i < n ? slot0[i] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kRangeRows; ++q) {
+      const long long i = t0 + q * blockDim.x + threadIdx.x;
+      if (l[q])
+        atomicAdd(&cnt[s[q] >> shift], 1);
+      else if (gid && i < n)
+        gid[i] = dead_gid;
+    }
+    __syncthreads();
+    // each range's place: a thread's cursor atomics (up to kMaxRanges /
+    // kRangeThreads) issued together, so a tile waits one round trip
+    int c[kMaxRanges / kRangeThreads], at[kMaxRanges / kRangeThreads];
+#pragma unroll
+    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u) {
+      const int b = threadIdx.x + u * blockDim.x;
+      c[u] = b < P ? cnt[b] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u)
+      at[u] = c[u] ? atomicAdd(cursor + threadIdx.x + u * blockDim.x, c[u])
+                   : 0;
+#pragma unroll
+    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u) {
+      const int b = threadIdx.x + u * blockDim.x;
+      if (c[u]) {
+        base[b] = at[u];
+        cnt[b] = 0;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kRangeRows; ++q) {
+      if (!l[q]) continue;
+      const int b = s[q] >> shift;
+      pairs[base[b] + atomicAdd(&cnt[b], 1)] =
+          make_int2((int)(t0 + q * blockDim.x + threadIdx.x), s[q]);
+    }
+    __syncthreads();
+  }
+}
+
+// Partitioned group_insert, one block per range of R = 2^shift slots: its
+// rows (bucket [offsets[r], offsets[r+1]) of pairs) insert into shared
+// memory (key planes, then slot words: 0 empty, 1 claiming, 2 ready);
+// rows whose chain reaches the range end spill. Then the block numbers
+// its new keys in slot order (ballots and a block scan, no atomic a
+// claim), takes their tickets with one atomic, writes its range of occ and
+// table once and each row's gid. A pair's y is overwritten with the row's
+// slot in the range (-1: spilled).
+__global__ void __launch_bounds__(kRangeThreads)
+    group_range_build_kernel(int2* pairs, const int* __restrict__ offsets,
+                             const long long* __restrict__ keys,
+                             int* __restrict__ gid, long long* table,
+                             int* occ, int* stat, int2* spill, int* spill_n,
+                             int n, int K, int cap, int shift) {
+  extern __shared__ long long tk[];  // K x R key planes, then R slot words
+  __shared__ int first_ticket, unplaced_total;
+  const int R = 1 << shift;
+  const int tcap = 2 * cap;
+  const int lane = threadIdx.x & 31;
+  int* st = reinterpret_cast<int*>(tk + (long long)K * R);
+  volatile long long* vtk = tk;
+  volatile int* vst = st;
+  for (int t = threadIdx.x; t < R; t += blockDim.x) st[t] = kEmpty;
+  if (threadIdx.x == 0) first_ticket = unplaced_total = 0;
+  __syncthreads();
+  const int r0 = blockIdx.x << shift;
+  const int beg = offsets[blockIdx.x], end = offsets[blockIdx.x + 1];
+  for (int e = beg + threadIdx.x; e < end; e += blockDim.x) {
+    const int2 p = pairs[e];
+    const long long key0 = K ? keys[p.x] : 0;
+    int found = -1;
+    for (int j = p.y & (R - 1); j < R;) {
+      const int v = vst[j];
+      if (v == kEmpty) {
+        if (atomicCAS(st + j, kEmpty, 1) != kEmpty) continue;
+        if (K) vtk[j] = key0;
+        for (int k = 1; k < K; ++k)
+          vtk[(long long)k * R + j] = keys[(long long)k * n + p.x];
+        __threadfence_block();
+        vst[j] = 2;
+        found = j;
         break;
       }
-      if (st == kClaiming) continue;  // spin until published
-      __threadfence();
-      bool eq = true;
-      for (int k = 0; k < K && eq; ++k)
-        eq = __ldcg(&table[(long long)k * tcap + s]) ==
-             keys[(long long)k * n + i];
+      if (v == 1) {  // wait until it is published
+        __nanosleep(kWaitNs);
+        continue;
+      }
+      __threadfence_block();
+      bool eq = !K || vtk[j] == key0;
+      for (int k = 1; k < K && eq; ++k)
+        eq = vtk[(long long)k * R + j] == keys[(long long)k * n + p.x];
       if (eq) {
-        if (st == kReady) out = s;
+        found = j;
         break;
       }
       ++j;
     }
-    gid[i] = out;
-    if (out == tcap) atomicAdd(&stat[1], 1);
+    if (found < 0) spill[atomicAdd(spill_n, 1)] = p;
+    reinterpret_cast<int*>(pairs)[2LL * e + 1] = found;
   }
+  __syncthreads();
+  // number the new keys in slot order (st = 2 + number): each warp takes a
+  // span of consecutive slots, 32 at a time, counted by ballots
+  const int span = R / (blockDim.x >> 5);  // a multiple of 32
+  const int w0 = (threadIdx.x >> 5) * span;
+  int used = 0;
+  for (int t = w0 + lane; t < w0 + span; t += 32)
+    used += __popc(__ballot_sync(kFull, st[t] != kEmpty));
+  int at = __shfl_sync(kFull, block_exclusive_scan(lane ? 0 : used), 0);
+  for (int t = w0 + lane; t < w0 + span; t += 32) {
+    const bool mine = st[t] != kEmpty;
+    const unsigned ballot = __ballot_sync(kFull, mine);
+    if (mine) st[t] = 2 + at + __popc(ballot & ((1u << lane) - 1));
+    at += __popc(ballot);
+  }
+  if (threadIdx.x == blockDim.x - 1 && at)  // at: the block's new keys
+    first_ticket = atomicAdd(stat + 2, at);
+  __syncthreads();
+  const int t0 = first_ticket;
+  for (int t = threadIdx.x; t < R; t += blockDim.x) {
+    const int v = st[t];
+    const bool keep = v >= 2 && t0 + (v - 2) < cap;
+    occ[r0 + t] = keep;
+    for (int k = 0; k < K; ++k)
+      table[(long long)k * tcap + r0 + t] = keep ? tk[(long long)k * R + t] : 0;
+  }
+  int unplaced = 0;
+  for (int e = beg + threadIdx.x; e < end; e += blockDim.x) {
+    const int2 p = pairs[e];  // written above by this block
+    if (p.y < 0) continue;    // spilled: the spill pass places it
+    const bool keep = t0 + (st[p.y] - 2) < cap;
+    gid[p.x] = keep ? r0 + p.y : tcap;
+    unplaced += !keep;
+  }
+  unplaced = __reduce_add_sync(kFull, unplaced);
+  if (lane == 0 && unplaced) atomicAdd(&unplaced_total, unplaced);
+  __syncthreads();
+  if (threadIdx.x == 0 && unplaced_total) atomicAdd(stat + 1, unplaced_total);
 }
 
-__global__ void join_insert_kernel(const int* __restrict__ slot0,
-                                   const bool* __restrict__ live,
-                                   int* slot_row, int n, int tcap) {
-  const int mask = tcap - 1;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    if (!live[i]) continue;
-    const int s0 = slot0[i];
-    for (int j = 0; j < tcap; ++j) {
-      if (atomicCAS(&slot_row[(s0 + j) & mask], -1, i) == -1) break;
-    }
+// Partitioned join_insert, one block per range of R = 2^shift slots: its
+// rows (bucket [offsets[r], offsets[r+1]) of pairs) claim slots of the
+// range in shared memory; a row whose chain reaches the range end spills.
+// Then the range of slot_row, -1 where empty, is written once with
+// 16-byte stores.
+__global__ void __launch_bounds__(kRangeThreads)
+    join_range_build_kernel(const int2* __restrict__ pairs,
+                            const int* __restrict__ offsets, int* slot_row,
+                            int2* spill, int* spill_n, int shift) {
+  extern __shared__ int4 srow4[];
+  int* srow = reinterpret_cast<int*>(srow4);
+  const int R = 1 << shift;
+  for (int q = threadIdx.x; q < R / 4; q += blockDim.x)
+    srow4[q] = make_int4(-1, -1, -1, -1);
+  __syncthreads();
+  const int end = offsets[blockIdx.x + 1];
+  for (int e = offsets[blockIdx.x] + threadIdx.x; e < end; e += blockDim.x) {
+    const int2 p = pairs[e];
+    int j = p.y & (R - 1);
+    while (j < R && atomicCAS(srow + j, -1, p.x) != -1) ++j;
+    if (j == R) spill[warp_ticket(spill_n)] = p;
   }
+  __syncthreads();
+  int4* dst = reinterpret_cast<int4*>(slot_row + ((long long)blockIdx.x << shift));
+  for (int q = threadIdx.x; q < R / 4; q += blockDim.x) dst[q] = srow4[q];
 }
 
 constexpr int kProbeThreads = 128;
@@ -246,28 +680,188 @@ cudaError_t launch_probe(const int* slot0, const long long* pkeys,
 
 }  // namespace
 
+namespace {
+
+// The count and scatter kernels' grid: at least a tile of kRangeRows rows
+// a thread a block, at most two blocks an SM.
+int range_blocks(int n) {
+  const long long most = 2LL * sm_count();
+  const long long b = ((long long)n + kRangeRows * kRangeThreads - 1) /
+                      (kRangeRows * kRangeThreads);
+  return b < 1 ? 1 : (int)(b < most ? b : most);
+}
+
+// Scratch of a partitioned insert, carved from one buffer: hdr = [blocks
+// done, spill count, counts[P]] (zeroed by the launch), cursor[P],
+// offsets[P + 1], then int2 (row, slot0) buckets of the live rows,
+// packed, and a spill list: n entries each.
+struct RangeScratch {
+  int* hdr;
+  int* cursor;
+  int* offsets;
+  int2* pairs;
+  int2* spill;
+  long long zero_bytes;
+  long long bytes;
+};
+
+RangeScratch range_scratch(void* base, int n, int P) {
+  RangeScratch g;
+  const long long head = ((2LL + 3LL * P + 1) * 4 + 15) / 16 * 16;
+  g.hdr = static_cast<int*>(base);
+  g.cursor = g.hdr + 2 + P;
+  g.offsets = g.cursor + P;
+  g.pairs = reinterpret_cast<int2*>(static_cast<char*>(base) + head);
+  g.spill = g.pairs + n;
+  g.zero_bytes = (2LL + P) * 4;
+  g.bytes = head + 16LL * n;
+  return g;
+}
+
+// Count and scatter: (row, slot0) of the live rows into packed buckets,
+// one a range; dead rows get gid = dead_gid if gid.
+cudaError_t range_partition(const int* s0, const bool* lv, int* gid,
+                            int dead_gid, int* stat, const RangeScratch& r,
+                            int n, int shift, int P, cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(r.hdr, 0, r.zero_bytes, s);
+  if (e != cudaSuccess) return e;
+  const int blocks = range_blocks(n);
+  range_count_kernel<<<blocks, kRangeThreads, 4 * P, s>>>(
+      s0, lv, r.hdr, r.cursor, r.offsets, stat, n, shift, P);
+  range_scatter_kernel<<<blocks, kRangeThreads, 8 * P, s>>>(
+      s0, lv, r.cursor, r.pairs, gid, dead_gid, n, shift, P);
+  return cudaSuccess;
+}
+
+// A range of 2^shift slots is valid if it has at least a slot a thread of
+// a range block, divides tcap into at most kMaxRanges ranges and its
+// shared-memory table (bytes_per_slot a slot) fits in a block.
+bool range_ok(int tcap, int shift, long long bytes_per_slot) {
+  return (1LL << shift) >= kRangeThreads && shift <= 30 &&
+         (1LL << shift) <= tcap &&
+         (tcap >> shift) <= kMaxRanges &&
+         (bytes_per_slot << shift) + 64 <= kMaxSmem;
+}
+
+// Opt a kernel in to as much dynamic shared memory as its static shared
+// memory leaves of kMaxSmem.
+template <typename F>
+cudaError_t allow_max_smem(F* kernel) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSmem - (int)a.sharedSizeBytes);
+}
+
+// The range kernels' opt-in, once per process.
+cudaError_t range_kernels_ready() {
+  static const cudaError_t err = [] {
+    cudaError_t e = allow_max_smem(range_scatter_kernel);
+    if (e == cudaSuccess) e = allow_max_smem(group_range_build_kernel);
+    if (e == cudaSuccess) e = allow_max_smem(join_range_build_kernel);
+    return e;
+  }();
+  return err;
+}
+
+
+}  // namespace
+
+// Bytes of scratch a partitioned insert of n rows into tcap slots needs
+// (0 for the global path).
+extern "C" long long insert_scratch_bytes(int n, int tcap, int shift) {
+  return shift > 0 ? range_scratch(nullptr, n, tcap >> shift).bytes : 0;
+}
+
 // slot0 int32[n]; keys int64[K, n]; live bool[n] -> gid int32[n];
-// table int64[K, 2cap] (zeroed); occ int32[2cap] (zeroed); state int32[2cap]
-// (zeroed scratch); stat int32[3] (zeroed: n_groups, overflow, tickets).
+// table int64[K, 2cap]; occ int32[2cap]; stat int32[4] (n_groups,
+// overflow, tickets, blocks done). Every output is written here: on the
+// global path (shift 0) table, occ and stat must be adjacent in that order
+// (one allocation), and one memset zeroes them; on the partitioned path
+// (ranges of 2^shift slots) scratch holds insert_scratch_bytes(n, 2cap,
+// shift).
 extern "C" int group_insert_launch(const void* slot0, const void* keys,
                                    const void* live, void* gid, void* table,
-                                   void* occ, void* state, void* stat, int n,
-                                   int K, int cap, void* stream) {
-  if (n <= 0) return 0;
-  group_insert_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)slot0, (const long long*)keys, (const bool*)live,
-      (int*)gid, (long long*)table, (int*)occ, (int*)state, (int*)stat, n,
-      K, cap);
+                                   void* occ, void* stat, void* scratch,
+                                   int n, int K, int cap, int shift,
+                                   void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int tcap = 2 * cap;
+  const int* s0 = static_cast<const int*>(slot0);
+  const long long* kp = static_cast<const long long*>(keys);
+  const bool* lv = static_cast<const bool*>(live);
+  int* g = static_cast<int*>(gid);
+  long long* tb = static_cast<long long*>(table);
+  int* oc = static_cast<int*>(occ);
+  int* st = static_cast<int*>(stat);
+  if (K < 0 || cap < 1) return (int)cudaErrorInvalidValue;
+  if (shift <= 0) {
+    if (oc != reinterpret_cast<int*>(tb + (long long)K * tcap) ||
+        st != oc + tcap)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaMemsetAsync(
+        table, 0, (8LL * K + 4) * tcap + 16, s);
+    if (e != cudaSuccess) return (int)e;
+    if (n <= 0) return 0;
+    if (n <= cap)  // every key fits: no tickets
+      group_insert_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
+          s0, kp, lv, nullptr, nullptr, g, tb, oc, st, n, K, cap);
+    else
+      group_insert_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
+          s0, kp, lv, nullptr, nullptr, g, tb, oc, st, n, K, cap);
+    return (int)cudaGetLastError();
+  }
+  if (!range_ok(tcap, shift, 8LL * K + 4) || !scratch)
+    return (int)cudaErrorInvalidValue;
+  const int P = tcap >> shift;
+  const RangeScratch r = range_scratch(scratch, n, P);
+  cudaError_t e = range_kernels_ready();
+  if (e == cudaSuccess)
+    e = range_partition(s0, lv, g, tcap, st, r, n, shift, P, s);
+  if (e != cudaSuccess) return (int)e;
+  group_range_build_kernel<<<P, kRangeThreads, (8LL * K + 4) << shift, s>>>(
+      r.pairs, r.offsets, kp, g, tb, oc, st, r.spill, r.hdr + 1, n, K, cap,
+      shift);
+  group_insert_kernel<true><<<sm_count(), kThreads, 0, s>>>(
+      s0, kp, lv, r.spill, r.hdr + 1, g, tb, oc, st, n, K, cap);
   return (int)cudaGetLastError();
 }
 
-// slot0 int32[n]; live bool[n] -> slot_row int32[tcap] (filled with -1).
+// slot0 int32[n]; live bool[n] -> slot_row int32[tcap], every slot written
+// (-1 where empty). Partitioned (ranges of 2^shift slots) when shift > 0,
+// with insert_scratch_bytes(n, tcap, shift) of scratch.
 extern "C" int join_insert_launch(const void* slot0, const void* live,
-                                  void* slot_row, int n, int tcap,
-                                  void* stream) {
-  if (n <= 0) return 0;
-  join_insert_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)slot0, (const bool*)live, (int*)slot_row, n, tcap);
+                                  void* slot_row, void* scratch, int n,
+                                  int tcap, int shift, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* s0 = static_cast<const int*>(slot0);
+  const bool* lv = static_cast<const bool*>(live);
+  int* sr = static_cast<int*>(slot_row);
+  if (shift <= 0) {
+    cudaError_t e = cudaMemsetAsync(slot_row, 0xFF, 4LL * tcap, s);
+    if (e != cudaSuccess) return (int)e;
+    if (n <= 0) return 0;
+    const int rows = kThreads * kJoinRows;
+    int blocks = (n + rows - 1) / rows;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    join_insert_kernel<<<blocks, kThreads, 0, s>>>(s0, lv, nullptr, nullptr,
+                                                   sr, n, tcap);
+    return (int)cudaGetLastError();
+  }
+  if (!range_ok(tcap, shift, 4) || !scratch)
+    return (int)cudaErrorInvalidValue;
+  const int P = tcap >> shift;
+  const RangeScratch r = range_scratch(scratch, n, P);
+  cudaError_t e = range_kernels_ready();
+  if (e == cudaSuccess)
+    e = range_partition(s0, lv, nullptr, 0, nullptr, r, n, shift, P, s);
+  if (e != cudaSuccess) return (int)e;
+  join_range_build_kernel<<<P, kRangeThreads, 4LL << shift, s>>>(
+      r.pairs, r.offsets, sr, r.spill, r.hdr + 1, shift);
+  join_insert_kernel<<<sm_count(), kThreads, 0, s>>>(s0, lv, r.spill,
+                                                     r.hdr + 1, sr, n, tcap);
   return (int)cudaGetLastError();
 }
 

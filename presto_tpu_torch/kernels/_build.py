@@ -29,19 +29,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-# C signature of every kernel entry point: (argtypes); all return int
-# (the cudaError_t of the launch).
+# C signature of every entry point: (argtypes); each returns int (the
+# cudaError_t of the launch) unless RESTYPES names another type.
 SIGNATURES = {
     "grouped_sums": {"grouped_sums_launch": [_P, _P, _I, _P, _I, _I, _I, _I,
                                              _I, _P]},
     "hash_table": {
         "group_insert_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _P],
-        "join_insert_launch": [_P, _P, _P, _I, _I, _P],
+                                _I, _I, _I, _I, _P],
+        "insert_scratch_bytes": [_I, _I, _I],
+        "join_insert_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
         "join_probe_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _L, _I, _I, _P],
     },
 }
+
+RESTYPES = {"insert_scratch_bytes": _L}
 
 
 def nvcc() -> str:
@@ -103,7 +106,7 @@ def library(name: str) -> ctypes.CDLL:
         for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
-            f.restype = ctypes.c_int
+            f.restype = RESTYPES.get(fn, ctypes.c_int)
         _libs[name] = lib
         return lib
 

@@ -20,7 +20,10 @@ slot order), so on the CPU they agree bit for bit with the JAX package.
 The CUDA kernels insert in parallel: slot assignment, and so hash-engine
 group order and the order of matches within a probe row, may differ from
 the serial kernels'; the group multiset, gid consistency, counts and the
-overflow signal do not.
+overflow signal do not. The two inserts take one of two paths on the
+card, which `group_insert_plan` and `join_insert_plan` pick by size: one
+global kernel, or a build partitioned by slot range for many rows
+(group_insert) or a table past the L2 (join_insert).
 """
 
 from __future__ import annotations
@@ -34,6 +37,24 @@ from presto_tpu_torch.kernels._build import check, library, stream_ptr
 
 _NAN64_BITS = 0x7FF8000000000000
 _NAN32_BITS = 0x7FC00000
+
+# Launch plans of the inserts (csrc/hash_table.cu), set by measurement on
+# an H100 (PERF.md): group_insert takes the partitioned path from
+# GROUP_PARTITION_MIN_ROWS rows (its global kernel slows with the rows,
+# as equal keys come in runs, whatever the table's size), join_insert from
+# a slot_row of JOIN_PARTITION_MIN_BYTES (past the 50 MB L2), with ranges
+# of 2^GROUP_RANGE_BITS and 2^JOIN_RANGE_BITS slots: more where a table
+# would have more than MAX_RANGES ranges, fewer (down to 2^MIN_RANGE_BITS)
+# where a range's shared table would not fit in one block. A table of
+# fewer than MIN_RANGES ranges stays on the global path.
+GROUP_PARTITION_MIN_ROWS = 1 << 18
+JOIN_PARTITION_MIN_BYTES = 64 << 20
+GROUP_RANGE_BITS = 12
+JOIN_RANGE_BITS = 13
+MIN_RANGE_BITS = 10  # a slot a thread of a range block
+MIN_RANGES = 64
+MAX_RANGES = 8192  # ranges one launch takes (the scatter's shared counts)
+RANGE_SMEM_BYTES = 232448 - 64  # a range block's shared table, at most
 
 
 # ---------------------------------------------------------------------------
@@ -168,21 +189,81 @@ def group_insert_plain(planes, slot0, live, cap: int):
             torch.tensor(ovf, dtype=torch.int32))
 
 
-def _group_insert_cuda(planes, slot0, live, cap: int):
-    k, n = planes.shape
+def _range_bits(tcap: int, slot_bytes: int, bits: int) -> int:
+    """log2 of a range's slots on the partitioned path: `bits`, more while
+    the table would have more than MAX_RANGES ranges, fewer while a
+    range's shared table (slot_bytes a slot) would not fit in a block; 0
+    (the global path) where no range size between 2^MIN_RANGE_BITS and
+    tcap / MIN_RANGES fits."""
+    shift = max(bits, tcap.bit_length() - MAX_RANGES.bit_length())
+    while shift > MIN_RANGE_BITS and slot_bytes << shift > RANGE_SMEM_BYTES:
+        shift -= 1
+    if (slot_bytes << shift > RANGE_SMEM_BYTES or tcap >> shift < MIN_RANGES
+            or tcap >> shift > MAX_RANGES):
+        return 0
+    return shift
+
+
+def group_insert_plan(n: int, k: int, cap: int) -> int:
+    """group_insert's path on the card for n rows of K key planes and
+    `cap`: 0 for the global kernel, else log2 of the slots of one range (a
+    slot holds K keys and its state word)."""
+    if n < GROUP_PARTITION_MIN_ROWS:
+        return 0
+    return _range_bits(2 * cap, 8 * k + 4, GROUP_RANGE_BITS)
+
+
+def join_insert_plan(tcap: int) -> int:
+    """join_insert's path on the card: 0 for the global kernel, else log2
+    of the slots of one range (a slot holds one row index)."""
+    if 4 * tcap < JOIN_PARTITION_MIN_BYTES:
+        return 0
+    return _range_bits(tcap, 4, JOIN_RANGE_BITS)
+
+
+def _insert_scratch(n: int, tcap: int, shift: int, dev):
+    """The partitioned path's scratch (None on the global path): bucket
+    counts and offsets, (row, slot0) of the live rows, the spill list."""
+    if not shift:
+        return None
+    nbytes = library("hash_table").insert_scratch_bytes(n, tcap, shift)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def group_insert_buffers(k: int, n: int, cap: int, shift: int, dev):
+    """(gid, table, occ, stat, scratch) for one launch. gid, table, occ
+    and stat int32[4] (n_groups, overflow, tickets, blocks done) are views
+    of one allocation, table, occ and stat adjacent, so that the launch
+    zeroes them with one memset; scratch is the partitioned path's (None
+    on the global path)."""
     tcap = 2 * cap
+    tb, ob = 8 * k * tcap, 4 * tcap
+    buf = torch.empty(tb + ob + 16 + 4 * n, dtype=torch.uint8, device=dev)
+    table = buf[:tb].view(torch.int64).view(k, tcap)
+    occ = buf[tb:tb + ob].view(torch.int32)
+    stat = buf[tb + ob:tb + ob + 16].view(torch.int32)
+    gid = buf[tb + ob + 16:].view(torch.int32)
+    return gid, table, occ, stat, _insert_scratch(n, tcap, shift, dev)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _group_insert_cuda(planes, slot0, live, cap: int,
+                       shift: Optional[int] = None):
+    k, n = planes.shape
     dev = planes.device
-    gid = torch.empty(n, dtype=torch.int32, device=dev)
-    table = torch.zeros(k, tcap, dtype=torch.int64, device=dev)
-    occ = torch.zeros(tcap, dtype=torch.int32, device=dev)
-    state = torch.zeros(tcap, dtype=torch.int32, device=dev)
-    stat = torch.zeros(3, dtype=torch.int32, device=dev)
+    if shift is None:
+        shift = group_insert_plan(n, k, cap)
+    gid, table, occ, stat, scratch = group_insert_buffers(k, n, cap, shift,
+                                                          dev)
     lib = library("hash_table")
     group_insert.launches += 1
     check(lib.group_insert_launch(
         slot0.data_ptr(), planes.data_ptr(), live.data_ptr(), gid.data_ptr(),
-        table.data_ptr(), occ.data_ptr(), state.data_ptr(), stat.data_ptr(),
-        n, k, cap, stream_ptr(dev)), "group_insert")
+        table.data_ptr(), occ.data_ptr(), stat.data_ptr(), _ptr(scratch),
+        n, k, cap, shift, stream_ptr(dev)), "group_insert")
     return gid, table, occ, stat[0], stat[1]
 
 
@@ -228,14 +309,24 @@ def join_insert_plain(slot0, live, tcap: int):
     return torch.tensor(slot_row, dtype=torch.int32)
 
 
-def _join_insert_cuda(slot0, live, tcap: int):
+def join_insert_buffers(n: int, tcap: int, shift: int, dev):
+    """(slot_row, scratch) for one launch; the launch writes every slot
+    (scratch: the partitioned path's, None on the global path)."""
+    slot_row = torch.empty(tcap, dtype=torch.int32, device=dev)
+    return slot_row, _insert_scratch(n, tcap, shift, dev)
+
+
+def _join_insert_cuda(slot0, live, tcap: int, shift: Optional[int] = None):
     dev = slot0.device
-    slot_row = torch.full((tcap,), -1, dtype=torch.int32, device=dev)
+    n = slot0.shape[0]
+    if shift is None:
+        shift = join_insert_plan(tcap)
+    slot_row, scratch = join_insert_buffers(n, tcap, shift, dev)
     lib = library("hash_table")
     join_insert.launches += 1
     check(lib.join_insert_launch(slot0.data_ptr(), live.data_ptr(),
-                                 slot_row.data_ptr(), slot0.shape[0], tcap,
-                                 stream_ptr(dev)), "join_insert")
+                                 slot_row.data_ptr(), _ptr(scratch), n, tcap,
+                                 shift, stream_ptr(dev)), "join_insert")
     return slot_row
 
 

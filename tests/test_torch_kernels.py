@@ -182,6 +182,46 @@ def test_group_insert_overflow():
     assert int(ng) == cap and int(ovf) > 0
 
 
+# (rows, key planes, cap, shift): the Q3-hash SF 1 shape stays global;
+# from GROUP_PARTITION_MIN_ROWS rows ranges of 2^12 slots; wide keys
+# shrink a range to fit shared memory; a table of too few ranges, or
+# very wide keys, stays global
+@pytest.mark.parametrize("n,k,cap,shift", [
+    (65536, 3, 1 << 17, 0), (hk.GROUP_PARTITION_MIN_ROWS - 1, 1, 1 << 20, 0),
+    (6001215, 1, 1 << 21, 12), (6001215, 1, 1 << 20, 12),
+    (1 << 20, 8, 1 << 20, 11), (1 << 20, 1, 1 << 10, 0),
+    (1 << 20, 400, 1 << 20, 0)])
+def test_group_insert_plan(n, k, cap, shift):
+    assert hk.group_insert_plan(n, k, cap) == shift
+
+
+# (tcap, shift): global below a 64 MB slot_row (Q3 SF 1's 2^20 slots);
+# ranges of 2^13 slots, more slots a range where there would be more than
+# MAX_RANGES ranges, global where such a range would not fit
+@pytest.mark.parametrize("tcap,shift", [
+    (1 << 20, 0), (1 << 23, 0), (1 << 24, 13), (1 << 25, 13), (1 << 27, 14),
+    (1 << 30, 0)])
+def test_join_insert_plan(tcap, shift):
+    assert hk.join_insert_plan(tcap) == shift
+
+
+def test_insert_plan_range_split():
+    """A chain that runs past a range end continues in the next range, and
+    past the table end in range 0: the split the partitioned path's spill
+    pass exists for, at the plan of Q3's SF 10 build side."""
+    tcap = 1 << 25
+    shift = hk.join_insert_plan(tcap)
+    r = 1 << shift
+
+    def ranges(s0, length):
+        return sorted({((s0 + j) & (tcap - 1)) >> shift
+                       for j in range(length)})
+
+    assert ranges(5 * r - 3, 3) == [4]
+    assert ranges(5 * r - 3, 5) == [4, 5]
+    assert ranges(tcap - 2, 4) == [0, (tcap >> shift) - 1]
+
+
 def test_group_insert_rejects_non_pow2_cap():
     with pytest.raises(ValueError):
         hk.group_insert(torch.zeros(1, 4, dtype=torch.int64),
