@@ -7,7 +7,12 @@
    from presto_tpu_torch/csrc (one nvcc per source, all at once).
 2. Kernel phase: each kernel against its plain PyTorch version on the card,
    on synthetic inputs at the main path's widths (the serial plain versions
-   of the three hash kernels bound those cases to 65,536 rows).
+   of the three hash kernels bound those cases to 65,536 rows), and the two
+   inserts' partitioned path forced on small tables: chains across range
+   ends, chains that wrap from the last slot to slot 0, all rows on one
+   slot, more distinct keys than cap. The insert checks are torch on the
+   card (group_invariants, join_invariants) and, on these cases, also the
+   serial plain versions.
 3. Query phase: LocalRunner on CUDA over TPC-H SF 1 runs Q1, Q6 and Q3
    under breaker_engine=auto and Q3 under breaker_engine=hash; each result
    must equal a numpy oracle computed on the unscaled integers. The same
@@ -16,17 +21,22 @@
    every kernel must have launched.
 4. Timing phase: each kernel on the largest inputs its launcher saw in
    the query phase, three CUDA-event times: the kernel alone (the bare
-   C launch on outputs allocated once, events around each launch after a
-   spin kernel), warm and — where its inputs and outputs fit under the
-   50 MB L2 — cold, with the L2 flushed before each launch by a 128 MB
-   write and a 128 MB read; the launcher (the kernel plus its outputs'
-   allocation and fill); the public wrapper. Beside them the plain
-   version's time and result, the bound (bytes of the distinct inputs
-   read once and outputs written once, over 3.35 TB/s), which the cold
-   time must not beat, and for grouped_sums one `index_add_` call.
+   C launch, its memsets included, on outputs allocated once, events
+   around each launch after a spin kernel), warm and — where its inputs
+   and outputs fit under the 50 MB L2 — cold, with the L2 flushed before
+   each launch by a 128 MB write and a 128 MB read; the launcher (the
+   kernel plus its outputs' allocation); the public wrapper. Beside them
+   the plain version's time and result, the bound (bytes of the distinct
+   inputs read once and outputs written once, over 3.35 TB/s), which the
+   cold time must not beat, and for grouped_sums one `index_add_` call.
+   Then group_insert and join_insert at large shapes built on the card
+   (Q18's GROUP BY l_orderkey at SF 1, twice: cap 2^21 and, overflowing,
+   2^20; Q3's orders build side at SF 10), checked by their invariants and
+   timed the same way (their warm reading is cold: they exceed the L2);
+   their serial plain versions are not run there.
 
 Prints a `kernels` JSON line (`ms` is the cold kernel-alone time where
-one was taken), then as its last line
+one was taken; `large` holds the large shapes), then as its last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
 no ok line). Exits non-zero at once without CUDA or without the package.
 """

@@ -40,27 +40,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # textual variants of this checkout's csrc/hash_table.cu: name → edits
 VARIANTS = {
-    "join rows a thread = 2": [("constexpr int kJoinRows = 1;",
-                                "constexpr int kJoinRows = 2;")],
-    "join rows a thread = 4": [("constexpr int kJoinRows = 1;",
-                                "constexpr int kJoinRows = 4;")],
     "tickets once a warp": [("atomicAdd(stat + 2, 1) >= cap",
                              "warp_ticket(stat + 2) >= cap")],
     "fences, not acquire and release": [
         ("const int st = ld_acquire(occ + s);",
          "const int st = *(volatile int*)(occ + s);"),
         ("bool eq = !K || table[s] == key0;",
-         "__threadfence();\n      bool eq = !K || __ldcg(table + s) == key0;"),
+         "__threadfence();\n        bool eq = !K || __ldcg(table + s) == key0;"),
         ("st_release(occ + s, kReady);",
-         "__threadfence();\n        atomicExch(occ + s, kReady);")],
-    "cursor atomics one at a time": [(
-        "    // each range's place: a thread's cursor atomics (up to kMaxRanges /\n    // kRangeThreads) issued together, so a tile waits one round trip\n    int c[kMaxRanges / kRangeThreads], at[kMaxRanges / kRangeThreads];\n#pragma unroll\n    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u) {\n      const int b = threadIdx.x + u * blockDim.x;\n      c[u] = b < P ? cnt[b] : 0;\n    }\n#pragma unroll\n    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u)\n      at[u] = c[u] ? atomicAdd(cursor + threadIdx.x + u * blockDim.x, c[u])\n                   : 0;\n#pragma unroll\n    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u) {\n      const int b = threadIdx.x + u * blockDim.x;\n      if (c[u]) {\n        base[b] = at[u];\n        cnt[b] = 0;\n      }\n    }\n",
-        '    for (int b = threadIdx.x; b < P; b += blockDim.x) {\n      const int c = cnt[b];\n      if (c) {\n        base[b] = atomicAdd(cursor + b, c);\n        cnt[b] = 0;\n      }\n    }\n')],
-    "range kernels 16 rows a thread": [("constexpr int kRangeRows = 8;",
-                                        "constexpr int kRangeRows = 16;")],
+         "__threadfence();\n          atomicExch(occ + s, kReady);")],
     "no key matching in a warp": [
         ("const unsigned peers = same_key_lanes(act, s0, keys, n, row, K);",
          "const unsigned peers = 1u << lane;")],
+    "range kernels 16 rows a thread": [("constexpr int kRangeRows = 8;",
+                                        "constexpr int kRangeRows = 16;")],
     "range blocks of 512 threads": [("constexpr int kRangeThreads = 1024;",
                                      "constexpr int kRangeThreads = 512;")],
 }
@@ -382,7 +375,7 @@ def main() -> int:
             slot0, live, tcap = inp
             slot_bytes = 4
             plan = hk.join_insert_plan(tcap)
-            glob = [("join rows a thread = 2", 0), ("join rows a thread = 4", 0)]
+            glob = []
         part = plan or 13
         tries = [("this PR, plan", cur, plan)]
         tries += [(f"this PR, shift {s}", cur, s) for s in (0, 12, 13, 14, 15)
@@ -390,8 +383,7 @@ def main() -> int:
         if full:
             tries += [(f"{v}, shift {s}", variants[v], s) for v, s in glob]
             tries += [(f"{v}, shift {part}", variants[v], part)
-                      for v in ("cursor atomics one at a time",
-                                "range kernels 16 rows a thread",
+                      for v in ("range kernels 16 rows a thread",
                                 "range blocks of 512 threads")
                       if valid(tcap, slot_bytes, part)]
         if kind == "group":

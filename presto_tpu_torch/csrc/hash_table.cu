@@ -88,9 +88,6 @@ constexpr int kEmpty = 0, kReady = 1, kClaiming = 2;
 // a row waiting on a slot that another row is claiming sleeps this long
 // between reads, so that the claimer, maybe a lane of its own warp, runs
 constexpr unsigned kWaitNs = 32;
-// join_insert rows a thread of the global kernel takes at once (their
-// claims independent, in flight together)
-constexpr int kJoinRows = 1;
 // range kernels: threads a block, rows a count or scatter thread holds in
 // registers
 constexpr int kRangeThreads = 1024;
@@ -271,7 +268,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // One thread per live row (or spill-list entry) claims the first free slot
-// of its chain; kJoinRows rows a thread, their claims in flight together.
+// of its chain. (Two or four rows a thread, their claims in flight
+// together, measured slower: PERF.md.)
 __global__ void __launch_bounds__(kThreads)
     join_insert_kernel(const int* __restrict__ slot0,
                        const bool* __restrict__ live,
@@ -280,42 +278,20 @@ __global__ void __launch_bounds__(kThreads)
                        int tcap) {
   const int mask = tcap - 1;
   const int count = list ? *list_n : n;
-  const int stride = gridDim.x * blockDim.x;
-  for (int first = blockIdx.x * blockDim.x + threadIdx.x; first < count;
-       first += stride * kJoinRows) {
-    int row[kJoinRows], s[kJoinRows];
-    bool todo[kJoinRows];
-#pragma unroll
-    for (int r = 0; r < kJoinRows; ++r) {
-      const int i = first + r * stride;
-      todo[r] = false;
-      if (i < count) {
-        if (list) {
-          const int2 e = list[i];
-          row[r] = e.x;
-          s[r] = e.y;
-          todo[r] = true;
-        } else if (live[i]) {
-          row[r] = i;
-          s[r] = slot0[i];
-          todo[r] = true;
-        }
-      }
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += gridDim.x * blockDim.x) {
+    int row, s;
+    if (list) {
+      const int2 e = list[i];
+      row = e.x;
+      s = e.y;
+    } else {
+      if (!live[i]) continue;
+      row = i;
+      s = slot0[i];
     }
-    for (int j = 0; j < tcap; ++j) {
-      bool more = false;
-#pragma unroll
-      for (int r = 0; r < kJoinRows; ++r) {
-        if (!todo[r]) continue;
-        if (atomicCAS(slot_row + s[r], -1, row[r]) == -1) {
-          todo[r] = false;
-        } else {
-          s[r] = (s[r] + 1) & mask;
-          more = true;
-        }
-      }
-      if (!more) break;
-    }
+    for (int j = 0; j < tcap && atomicCAS(slot_row + s, -1, row) != -1; ++j)
+      s = (s + 1) & mask;
   }
 }
 
@@ -405,23 +381,10 @@ __global__ void __launch_bounds__(kRangeThreads)
         gid[i] = dead_gid;
     }
     __syncthreads();
-    // each range's place: a thread's cursor atomics (up to kMaxRanges /
-    // kRangeThreads) issued together, so a tile waits one round trip
-    int c[kMaxRanges / kRangeThreads], at[kMaxRanges / kRangeThreads];
-#pragma unroll
-    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u) {
-      const int b = threadIdx.x + u * blockDim.x;
-      c[u] = b < P ? cnt[b] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u)
-      at[u] = c[u] ? atomicAdd(cursor + threadIdx.x + u * blockDim.x, c[u])
-                   : 0;
-#pragma unroll
-    for (int u = 0; u < kMaxRanges / kRangeThreads; ++u) {
-      const int b = threadIdx.x + u * blockDim.x;
-      if (c[u]) {
-        base[b] = at[u];
+    for (int b = threadIdx.x; b < P; b += blockDim.x) {
+      const int c = cnt[b];
+      if (c) {
+        base[b] = atomicAdd(cursor + b, c);
         cnt[b] = 0;
       }
     }
@@ -843,11 +806,8 @@ extern "C" int join_insert_launch(const void* slot0, const void* live,
     cudaError_t e = cudaMemsetAsync(slot_row, 0xFF, 4LL * tcap, s);
     if (e != cudaSuccess) return (int)e;
     if (n <= 0) return 0;
-    const int rows = kThreads * kJoinRows;
-    int blocks = (n + rows - 1) / rows;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    join_insert_kernel<<<blocks, kThreads, 0, s>>>(s0, lv, nullptr, nullptr,
-                                                   sr, n, tcap);
+    join_insert_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+        s0, lv, nullptr, nullptr, sr, n, tcap);
     return (int)cudaGetLastError();
   }
   if (!range_ok(tcap, shift, 4) || !scratch)
