@@ -118,10 +118,7 @@ __device__ __forceinline__ void st_relaxed(int* p, int v) {
 }
 
 // counter += (lanes calling together); each caller gets its own old value.
-// One atomic per warp: the leader adds the count, then broadcasts. Not for
-// code beside which other lanes of the warp may wait on the caller (a
-// claimed slot): with a claimer taking its ticket this way, the global
-// group_insert kernel hung on the card.
+// One atomic per warp: the leader adds the count, then broadcasts.
 __device__ __forceinline__ int warp_ticket(int* counter) {
   cg::coalesced_group g = cg::coalesced_threads();
   int base = 0;
