@@ -30,13 +30,16 @@
    inputs read once and outputs written once, over 3.35 TB/s), which the
    cold time must not beat, and for grouped_sums one `index_add_` call.
    Then group_insert and join_insert at large shapes built on the card
-   (Q18's GROUP BY l_orderkey at SF 1, twice: cap 2^21 and, overflowing,
-   2^20; Q3's orders build side at SF 10), checked by their invariants and
-   timed the same way (their warm reading is cold: they exceed the L2);
-   their serial plain versions are not run there.
+   (Q18's GROUP BY l_orderkey at SF 1 in one call, twice: cap 2^21 and,
+   overflowing, 2^20; the merge steps LocalRunner's aggregate gives it for
+   that query, at caps 2^19 to 2^21: the previous group table, then a scan
+   batch; Q3's orders build side at SF 10), checked by their invariants
+   and timed the same way, cold and warm; their serial plain versions are
+   not run there.
 
 Prints a `kernels` JSON line (`ms` is the cold kernel-alone time where
-one was taken; `large` holds the large shapes), then as its last line
+one was taken; `large` holds the large shapes, `ms` cold and `ms_warm`),
+then as its last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
 no ok line). Exits non-zero at once without CUDA or without the package.
 """
@@ -318,6 +321,10 @@ def check_group_insert(torch, planes, slot0, live, cap, shift=None,
     group keys. Returns the discrepancy to the serial version."""
     from presto_tpu_torch.ops import hash_kernels as hk
 
+    if shift is not None:
+        require(hk.group_insert_shift(planes.shape[1], planes.shape[0], cap,
+                                      shift) == shift,
+                f"group_insert: cap {cap} cannot take ranges of 2^{shift}")
     out = (hk.group_insert(planes, slot0, live, cap) if shift is None
            else hk._group_insert_cuda(planes, slot0, live, cap, shift))
     torch.cuda.synchronize()
@@ -388,6 +395,9 @@ def check_join_insert(torch, slot0, live, tcap, shift=None, plain=True):
     serial version. Returns (slot_row, the discrepancy)."""
     from presto_tpu_torch.ops import hash_kernels as hk
 
+    if shift is not None:
+        require(hk.join_insert_shift(tcap, shift) == shift,
+                f"join_insert: tcap {tcap} cannot take ranges of 2^{shift}")
     sr = (hk.join_insert(slot0, live, tcap) if shift is None
           else hk._join_insert_cuda(slot0, live, tcap, shift))
     torch.cuda.synchronize()
@@ -446,7 +456,8 @@ def synthetic_planes(torch, rng, n, k, distinct, dev):
     return torch.from_numpy(np.ascontiguousarray(base[pick].T)).to(dev)
 
 
-# Forced range size of the partitioned cases: small tables, many ranges.
+# Forced range size of the partitioned cases: small tables, many ranges
+# (a table takes ranges from 64 of them: 2^16 slots).
 SMALL_RANGE_BITS = 10
 
 
@@ -461,21 +472,21 @@ def group_insert_cases():
             ("global, one slot", 8192, 2, 256, 200, None, "one slot"),
             ("global, no more rows than cap", 4096, 3, 8192, 3000, None,
              "hash"),
-            ("chains across range ends", 20000, 2, 8192, 3000, r,
+            ("chains across range ends", 20000, 2, 1 << 15, 3000, r,
              "range ends"),
-            ("chains wrap from tcap - 1 to 0", 20000, 1, 8192, 2000, r,
+            ("chains wrap from tcap - 1 to 0", 20000, 1, 1 << 15, 2000, r,
              "table end"),
-            ("all rows on one slot", 8192, 2, 4096, 300, r, "one slot"),
-            ("distinct > cap", 30000, 1, 4096, 6000, r, "hash")]
+            ("all rows on one slot", 8192, 2, 1 << 15, 300, r, "one slot"),
+            ("distinct > cap", m, 1, 1 << 15, 40000, r, "hash")]
 
 
 def join_insert_cases():
     """(label, rows, tcap, range shift, slot0 as in group_insert_cases).
     On one slot, more rows come to one range than its bucket holds."""
     r = SMALL_RANGE_BITS
-    return [("chains across range ends", 8000, 1 << 14, r, "range ends"),
-            ("chains wrap from tcap - 1 to 0", 8000, 1 << 14, r, "table end"),
-            ("all rows on one slot", 2048, 1 << 12, r, "one slot"),
+    return [("chains across range ends", 8000, 1 << 16, r, "range ends"),
+            ("chains wrap from tcap - 1 to 0", 8000, 1 << 16, r, "table end"),
+            ("all rows on one slot", 2048, 1 << 16, r, "one slot"),
             ("hashed", 30000, 1 << 16, r, "hash")]
 
 
@@ -918,8 +929,8 @@ def _bare_group_insert(torch, lib, sp, planes, slot0, live, cap, shift=None):
 
     k, n = planes.shape
     tcap = 2 * cap
-    if shift is None:
-        shift = hk.group_insert_plan(n, k, cap)
+    shift = lib.group_insert_shift(
+        k, cap, hk.group_insert_plan(n) if shift is None else shift)
     gid, table, occ, stat, scratch = hk.group_insert_buffers(
         k, n, cap, shift, planes.device)
     args = (slot0.data_ptr(), planes.data_ptr(), live.data_ptr(),
@@ -939,8 +950,8 @@ def _bare_join_insert(torch, lib, sp, slot0, live, tcap, shift=None):
     from presto_tpu_torch.ops import hash_kernels as hk
 
     n = slot0.shape[0]
-    if shift is None:
-        shift = hk.join_insert_plan(tcap)
+    shift = lib.join_insert_shift(
+        tcap, hk.join_insert_plan(tcap) if shift is None else shift)
     slot_row, scratch = hk.join_insert_buffers(n, tcap, shift, slot0.device)
     args = (slot0.data_ptr(), live.data_ptr(), slot_row.data_ptr(),
             hk._ptr(scratch), n, tcap, shift, sp)
@@ -1040,6 +1051,44 @@ def large_group_input(torch):
     return planes, torch.ones(Q18_LINES, dtype=torch.bool, device=dev)
 
 
+MERGE_BATCH_ROWS = 1 << 17  # ExecConfig.batch_rows: one scan batch a step
+MERGE_CAPS = (1 << 19, 1 << 20, 1 << 21)
+
+
+def merge_group_input(torch, planes, cap):
+    """(planes, slot0, live, runs) of one merge step of LocalRunner's
+    aggregate (exec/runtime.py merge_step) for Q18's GROUP BY l_orderkey
+    at cap: the previous group table (2 cap rows in slot order, its keys,
+    live where occupied), then the next MERGE_BATCH_ROWS lines of
+    lineitem in orderkey order. The orders are the first cap / 2^21 of
+    Q18's SF 1 orders (lineitem at a scale factor of cap / 2^21, which
+    the table holds at SF 1's load), the batch the last full batch of
+    their lines, the table the groups of the lines before it. runs: the
+    share of live rows whose key equals the row's before it."""
+    from presto_tpu_torch.ops import hash_kernels as hk
+    from presto_tpu_torch.ops.hashing import hash_columns, slot_hash
+
+    keys = planes[0]
+    orders = Q18_ORDERS * cap // Q18_CAPS[0]
+    new = torch.ones_like(keys, dtype=torch.bool)
+    new[1:] = keys[1:] != keys[:-1]
+    m = int(torch.nonzero(new).flatten()[orders]) if orders < int(
+        new.sum()) else keys.numel()
+    acc = planes[:, :m - MERGE_BATCH_ROWS].contiguous()
+    tcap = 2 * cap
+    acc_live = torch.ones(acc.shape[1], dtype=torch.bool, device=acc.device)
+    acc_slot0 = slot_hash(hash_columns(list(acc)), tcap)
+    out = hk.group_insert(acc, acc_slot0, acc_live, cap)
+    group_invariants(torch, acc, acc_live, cap, out)
+    _, table, occ, _, _ = out
+    merged = torch.cat([table[0], keys[m - MERGE_BATCH_ROWS:m]]).view(1, -1)
+    live = torch.cat([occ > 0, torch.ones(MERGE_BATCH_ROWS, dtype=torch.bool,
+                                          device=acc.device)])
+    batch = keys[m - MERGE_BATCH_ROWS:m]
+    runs = int((batch[1:] == batch[:-1]).sum()) / int(live.sum())
+    return (merged, slot_hash(hash_columns(list(merged)), tcap), live, runs)
+
+
 def large_join_input(torch):
     """(slot0, live, tcap) of Q3's orders build side at SF 10."""
     from presto_tpu_torch.batch import round_up_capacity
@@ -1057,23 +1106,45 @@ def large_join_input(torch):
             odate < _days(1995, 3, 15), tcap)
 
 
-def _large_row(torch, bare, launcher, wrapper):
-    """Kernel alone (the inputs exceed the L2, so the warm reading is
-    cold), launcher and wrapper of one large shape."""
+def _large_row(torch, bare, flush, launcher, wrapper):
+    """Kernel alone, cold (the L2 flushed before each launch: `ms`) and
+    warm (what the previous launch left in the L2: `ms_warm`), launcher
+    and wrapper of one large shape."""
     launch, b, shape, _outs = bare
-    require(b >= L2_BYTES, f"large shape {shape} fits in the L2")
     return {"shape": shape, "bytes": b,
             "bound": b / HBM_BYTES_PER_S * 1e3,
-            "ms": kernel_alone_ms(torch, launch),
+            "ms": kernel_alone_ms(torch, launch, flush),
+            "ms_warm": kernel_alone_ms(torch, launch),
             "launcher": cuda_ms(torch, launcher, iters=20),
             "wrapper": cuda_ms(torch, wrapper, iters=20)}
 
 
-def time_large(torch):
-    """Check and time group_insert and join_insert at the large shapes.
-    Each bare launch's result, and the wrapper's, must hold the kernel's
-    invariants (group_invariants, join_invariants: the serial plain
-    versions are not run at these sizes)."""
+def _large_group(torch, lib, sp, flush, label, planes, slot0, live, cap):
+    """One large group_insert shape: the bare launch and the wrapper hold
+    group_invariants, then _large_row."""
+    from presto_tpu_torch.ops import hash_kernels as hk
+
+    bare = _bare_group_insert(torch, lib, sp, planes, slot0, live, cap)
+    bare[0]()
+    torch.cuda.synchronize()
+    ng, ovf, distinct = group_invariants(torch, planes, live, cap, bare[3])
+    group_invariants(torch, planes, live, cap,
+                     hk.group_insert(planes, slot0, live, cap))
+    r = _large_row(torch, bare, flush,
+                   lambda: hk._group_insert_cuda(planes, slot0, live, cap),
+                   lambda: hk.group_insert(planes, slot0, live, cap))
+    r["shape"] = f"{label}: {r['shape']}"
+    r["check"] = f"distinct={distinct} n_groups={ng} overflow={ovf}"
+    return r
+
+
+def time_large(torch, flush):
+    """Check and time group_insert and join_insert at the large shapes:
+    Q18's lineitem in one call (caps 2^21 and 2^20), Q18's merge steps
+    (merge_group_input, caps MERGE_CAPS) and Q3's orders build side at SF
+    10. Each bare launch's result, and the wrapper's, must hold the
+    kernel's invariants (group_invariants, join_invariants: the serial
+    plain versions are not run at these sizes)."""
     from presto_tpu_torch.kernels._build import library, stream_ptr
     from presto_tpu_torch.ops import hash_kernels as hk
     from presto_tpu_torch.ops.hashing import hash_columns, slot_hash
@@ -1084,38 +1155,34 @@ def time_large(torch):
     planes, live = large_group_input(torch)
     for cap in Q18_CAPS:
         slot0 = slot_hash(hash_columns(list(planes)), 2 * cap)
-        bare = _bare_group_insert(torch, lib, sp, planes, slot0, live, cap)
-        bare[0]()
-        torch.cuda.synchronize()
-        ng, ovf, distinct = group_invariants(torch, planes, live, cap, bare[3])
-        group_invariants(torch, planes, live, cap,
-                         hk.group_insert(planes, slot0, live, cap))
-        r = _large_row(torch, bare,
-                       lambda: hk._group_insert_cuda(planes, slot0, live, cap),
-                       lambda: hk.group_insert(planes, slot0, live, cap))
-        r["check"] = f"distinct={distinct} n_groups={ng} overflow={ovf}"
-        rows["group_insert"].append(r)
-        del bare
-    del planes, live, slot0
+        rows["group_insert"].append(_large_group(
+            torch, lib, sp, flush, "Q18 SF 1", planes, slot0, live, cap))
+    for cap in MERGE_CAPS:
+        mp, ms, ml, runs = merge_group_input(torch, planes, cap)
+        rows["group_insert"].append(_large_group(
+            torch, lib, sp, flush, f"Q18 merge step (live rows in runs "
+            f"{runs:.4f})", mp, ms, ml, cap))
+    del planes, live, slot0, mp, ms, ml
     slot0, live, tcap = large_join_input(torch)
     bare = _bare_join_insert(torch, lib, sp, slot0, live, tcap)
     bare[0]()
     torch.cuda.synchronize()
     join_invariants(torch, slot0, live, bare[3])
     join_invariants(torch, slot0, live, hk.join_insert(slot0, live, tcap))
-    r = _large_row(torch, bare,
+    r = _large_row(torch, bare, flush,
                    lambda: hk._join_insert_cuda(slot0, live, tcap),
                    lambda: hk.join_insert(slot0, live, tcap))
+    r["shape"] = f"Q3 orders SF 10: {r['shape']}"
     r["check"] = f"live={int(live.sum())}"
     rows["join_insert"].append(r)
     for name, rs in rows.items():
         for r in rs:
             print(f"timing {name} [large: {r['shape']}; {r['check']}]: "
-                  f"kernel alone {r['ms']:.4f} ms (inputs and outputs exceed "
-                  f"the L2: the warm reading is cold); launcher "
-                  f"{r['launcher']:.4f} ms; wrapper {r['wrapper']:.4f} ms; "
-                  f"plain: not run (serial); bound {r['bound']:.5f} ms "
-                  f"({r['bytes']} bytes); invariants hold")
+                  f"kernel alone cold {r['ms']:.4f} ms, warm "
+                  f"{r['ms_warm']:.4f} ms; launcher {r['launcher']:.4f} ms; "
+                  f"wrapper {r['wrapper']:.4f} ms; plain: not run (serial); "
+                  f"bound {r['bound']:.5f} ms ({r['bytes']} bytes); "
+                  f"invariants hold")
             require(r["ms"] >= r["bound"], f"{name} large: kernel-alone time "
                     f"{r['ms']:.5f} ms beats its byte bound")
     return rows
@@ -1134,8 +1201,9 @@ def phase_timing(torch, inputs, errs):
     - wrapper: the public function (plus its input conversions);
     - plain: the plain version on the same inputs; for grouped_sums also
       one `index_add_` call on the states stacked as int64.
-    Then group_insert and join_insert at their large shapes (`time_large`),
-    where the serial plain versions are not run."""
+    Then group_insert and join_insert at their large shapes (`time_large`,
+    cold and warm at every shape), where the serial plain versions are not
+    run."""
     from presto_tpu_torch.ops import groupby_kernels as gk
     from presto_tpu_torch.ops import hash_kernels as hk
 
@@ -1225,7 +1293,7 @@ def phase_timing(torch, inputs, errs):
                 require(r[what] >= r["bound"],
                         f"{name}: kernel-alone time {what} {r[what]:.5f} ms "
                         f"beats its byte bound {r['bound']:.5f} ms")
-    for name, rs in time_large(torch).items():
+    for name, rs in time_large(torch, flush).items():
         rows[name]["large"] = rs
     return rows
 
@@ -1263,7 +1331,8 @@ def main() -> int:
             "plain_ms": r["plain"], "bound_ms": r["bound"],
             "bound_by": "bytes", "library_ms": r["library"],
             "large": [{"shape": x["shape"], "ms": x["ms"],
-                       "bound_ms": x["bound"], "launcher_ms": x["launcher"],
+                       "ms_warm": x["ms_warm"], "bound_ms": x["bound"],
+                       "launcher_ms": x["launcher"],
                        "wrapper_ms": x["wrapper"], "plain_ms": None}
                       for x in r.get("large", [])]})
     print(json.dumps({"kernels": kernels}))

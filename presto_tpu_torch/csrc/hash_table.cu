@@ -17,7 +17,8 @@
 // pass at the large shapes, PERF.md).
 //
 // Each insert has two paths; the caller's launch plan (ops/hash_kernels.py)
-// picks one by size, through `shift`:
+// asks for one by size, through `shift`, and `range_shift` below says
+// whether a table can take that split (the global path where it cannot):
 // - global (shift 0): the launch zeroes (or fills with -1) the outputs with
 //   one cudaMemsetAsync, then one thread per live row walks (slot0 + j) &
 //   (tcap - 1), with the table in the 50 MB L2 when it fits.
@@ -85,6 +86,9 @@ constexpr int kMaxBlocks = 132 * 16;
 constexpr unsigned kFull = 0xffffffffu;
 // group_insert slot states, held in occ
 constexpr int kEmpty = 0, kReady = 1, kClaiming = 2;
+// a range block's shared slot words (group_range_build_kernel): kEmpty,
+// kSmClaiming, kSmReady; once numbered, kSmReady + the new key's number
+constexpr int kSmClaiming = 1, kSmReady = 2;
 // a row waiting on a slot that another row is claiming sleeps this long
 // between reads, so that the claimer, maybe a lane of its own warp, runs
 constexpr unsigned kWaitNs = 32;
@@ -93,6 +97,9 @@ constexpr unsigned kWaitNs = 32;
 constexpr int kRangeThreads = 1024;
 constexpr int kRangeRows = 8;
 constexpr int kMaxRanges = 8192;
+// fewer ranges leave most SMs idle in the range build (32 ranges lost to
+// the global path, PERF.md)
+constexpr int kMinRanges = 64;
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in ceiling on sm_90
 
 inline int blocks_for(int n) {
@@ -399,7 +406,7 @@ __global__ void __launch_bounds__(kRangeThreads)
 
 // Partitioned group_insert, one block per range of R = 2^shift slots: its
 // rows (bucket [offsets[r], offsets[r+1]) of pairs) insert into shared
-// memory (key planes, then slot words: 0 empty, 1 claiming, 2 ready);
+// memory (key planes, then slot words: kEmpty, kSmClaiming, kSmReady);
 // rows whose chain reaches the range end spill. Then the block numbers
 // its new keys in slot order (ballots and a block scan, no atomic a
 // claim), takes their tickets with one atomic, writes its range of occ and
@@ -431,16 +438,16 @@ __global__ void __launch_bounds__(kRangeThreads)
     for (int j = p.y & (R - 1); j < R;) {
       const int v = vst[j];
       if (v == kEmpty) {
-        if (atomicCAS(st + j, kEmpty, 1) != kEmpty) continue;
+        if (atomicCAS(st + j, kEmpty, kSmClaiming) != kEmpty) continue;
         if (K) vtk[j] = key0;
         for (int k = 1; k < K; ++k)
           vtk[(long long)k * R + j] = keys[(long long)k * n + p.x];
         __threadfence_block();
-        vst[j] = 2;
+        vst[j] = kSmReady;
         found = j;
         break;
       }
-      if (v == 1) {  // wait until it is published
+      if (v == kSmClaiming) {  // wait until it is published
         __nanosleep(kWaitNs);
         continue;
       }
@@ -458,8 +465,8 @@ __global__ void __launch_bounds__(kRangeThreads)
     reinterpret_cast<int*>(pairs)[2LL * e + 1] = found;
   }
   __syncthreads();
-  // number the new keys in slot order (st = 2 + number): each warp takes a
-  // span of consecutive slots, 32 at a time, counted by ballots
+  // number the new keys in slot order (st = kSmReady + number): each warp
+  // takes a span of consecutive slots, 32 at a time, counted by ballots
   const int span = R / (blockDim.x >> 5);  // a multiple of 32
   const int w0 = (threadIdx.x >> 5) * span;
   int used = 0;
@@ -469,7 +476,7 @@ __global__ void __launch_bounds__(kRangeThreads)
   for (int t = w0 + lane; t < w0 + span; t += 32) {
     const bool mine = st[t] != kEmpty;
     const unsigned ballot = __ballot_sync(kFull, mine);
-    if (mine) st[t] = 2 + at + __popc(ballot & ((1u << lane) - 1));
+    if (mine) st[t] = kSmReady + at + __popc(ballot & ((1u << lane) - 1));
     at += __popc(ballot);
   }
   if (threadIdx.x == blockDim.x - 1 && at)  // at: the block's new keys
@@ -478,7 +485,7 @@ __global__ void __launch_bounds__(kRangeThreads)
   const int t0 = first_ticket;
   for (int t = threadIdx.x; t < R; t += blockDim.x) {
     const int v = st[t];
-    const bool keep = v >= 2 && t0 + (v - 2) < cap;
+    const bool keep = v >= kSmReady && t0 + (v - kSmReady) < cap;
     occ[r0 + t] = keep;
     for (int k = 0; k < K; ++k)
       table[(long long)k * tcap + r0 + t] = keep ? tk[(long long)k * R + t] : 0;
@@ -487,7 +494,7 @@ __global__ void __launch_bounds__(kRangeThreads)
   for (int e = beg + threadIdx.x; e < end; e += blockDim.x) {
     const int2 p = pairs[e];  // written above by this block
     if (p.y < 0) continue;    // spilled: the spill pass places it
-    const bool keep = t0 + (st[p.y] - 2) < cap;
+    const bool keep = t0 + (st[p.y] - kSmReady) < cap;
     gid[p.x] = keep ? r0 + p.y : tcap;
     unplaced += !keep;
   }
@@ -693,41 +700,66 @@ cudaError_t range_partition(const int* s0, const bool* lv, int* gid,
   return cudaSuccess;
 }
 
-// A range of 2^shift slots is valid if it has at least a slot a thread of
-// a range block, divides tcap into at most kMaxRanges ranges and its
-// shared-memory table (bytes_per_slot a slot) fits in a block.
-bool range_ok(int tcap, int shift, long long bytes_per_slot) {
-  return (1LL << shift) >= kRangeThreads && shift <= 30 &&
-         (1LL << shift) <= tcap &&
-         (tcap >> shift) <= kMaxRanges &&
-         (bytes_per_slot << shift) + 64 <= kMaxSmem;
-}
-
 // Opt a kernel in to as much dynamic shared memory as its static shared
-// memory leaves of kMaxSmem.
+// memory leaves of kMaxSmem; returns that size (0 after an error).
 template <typename F>
-cudaError_t allow_max_smem(F* kernel) {
+int allow_max_smem(F* kernel, cudaError_t* err) {
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kMaxSmem - (int)a.sharedSizeBytes);
+  if (*err == cudaSuccess) *err = cudaFuncGetAttributes(&a, kernel);
+  if (*err != cudaSuccess) return 0;
+  const int most = kMaxSmem - (int)a.sharedSizeBytes;
+  *err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  return *err == cudaSuccess ? most : 0;
 }
 
-// The range kernels' opt-in, once per process.
-cudaError_t range_kernels_ready() {
-  static const cudaError_t err = [] {
-    cudaError_t e = allow_max_smem(range_scatter_kernel);
-    if (e == cudaSuccess) e = allow_max_smem(group_range_build_kernel);
-    if (e == cudaSuccess) e = allow_max_smem(join_range_build_kernel);
-    return e;
+// The range kernels' opt-in, once per process: the dynamic shared memory
+// the group and join range builds may take (0 if the opt-in failed).
+struct RangeSmem {
+  int group = 0, join = 0;
+};
+
+const RangeSmem& range_smem() {
+  static const RangeSmem smem = [] {
+    RangeSmem m;
+    cudaError_t e = cudaSuccess;
+    allow_max_smem(range_scatter_kernel, &e);
+    m.group = allow_max_smem(group_range_build_kernel, &e);
+    m.join = allow_max_smem(join_range_build_kernel, &e);
+    if (e != cudaSuccess) m = RangeSmem();
+    return m;
   }();
-  return err;
+  return smem;
 }
 
+// The one rule for which split a partitioned insert can take: ranges of
+// 2^shift slots (slot_bytes of shared memory a slot) if a range has at
+// least a slot a thread of a range block, the table kMinRanges to
+// kMaxRanges ranges, and a range's shared table fits in smem bytes; else
+// 0, the global path.
+int range_shift(int tcap, int shift, long long slot_bytes, int smem) {
+  if (shift <= 0 || shift > 30) return 0;
+  const long long R = 1LL << shift, P = tcap / R;
+  return R >= kRangeThreads && P >= kMinRanges && P <= kMaxRanges &&
+                 slot_bytes * R <= smem
+             ? shift
+             : 0;
+}
 
 }  // namespace
+
+// The path of group_insert (K key planes, cap) and of join_insert (tcap
+// slots) when the launch plan asks for ranges of 2^shift slots: shift
+// where range_shift admits it, else 0 (the global path). A launch refuses
+// any other shift.
+extern "C" int group_insert_shift(int K, int cap, int shift) {
+  if (K < 0 || cap < 1 || cap > (1 << 29)) return 0;
+  return range_shift(2 * cap, shift, 8LL * K + 4, range_smem().group);
+}
+
+extern "C" int join_insert_shift(int tcap, int shift) {
+  return range_shift(tcap, shift, 4, range_smem().join);
+}
 
 // Bytes of scratch a partitioned insert of n rows into tcap slots needs
 // (0 for the global path).
@@ -773,13 +805,11 @@ extern "C" int group_insert_launch(const void* slot0, const void* keys,
           s0, kp, lv, nullptr, nullptr, g, tb, oc, st, n, K, cap);
     return (int)cudaGetLastError();
   }
-  if (!range_ok(tcap, shift, 8LL * K + 4) || !scratch)
+  if (group_insert_shift(K, cap, shift) != shift || !scratch)
     return (int)cudaErrorInvalidValue;
   const int P = tcap >> shift;
   const RangeScratch r = range_scratch(scratch, n, P);
-  cudaError_t e = range_kernels_ready();
-  if (e == cudaSuccess)
-    e = range_partition(s0, lv, g, tcap, st, r, n, shift, P, s);
+  cudaError_t e = range_partition(s0, lv, g, tcap, st, r, n, shift, P, s);
   if (e != cudaSuccess) return (int)e;
   group_range_build_kernel<<<P, kRangeThreads, (8LL * K + 4) << shift, s>>>(
       r.pairs, r.offsets, kp, g, tb, oc, st, r.spill, r.hdr + 1, n, K, cap,
@@ -807,13 +837,12 @@ extern "C" int join_insert_launch(const void* slot0, const void* live,
         s0, lv, nullptr, nullptr, sr, n, tcap);
     return (int)cudaGetLastError();
   }
-  if (!range_ok(tcap, shift, 4) || !scratch)
+  if (join_insert_shift(tcap, shift) != shift || !scratch)
     return (int)cudaErrorInvalidValue;
   const int P = tcap >> shift;
   const RangeScratch r = range_scratch(scratch, n, P);
-  cudaError_t e = range_kernels_ready();
-  if (e == cudaSuccess)
-    e = range_partition(s0, lv, nullptr, 0, nullptr, r, n, shift, P, s);
+  cudaError_t e =
+      range_partition(s0, lv, nullptr, 0, nullptr, r, n, shift, P, s);
   if (e != cudaSuccess) return (int)e;
   join_range_build_kernel<<<P, kRangeThreads, 4LL << shift, s>>>(
       r.pairs, r.offsets, sr, r.spill, r.hdr + 1, shift);

@@ -37,7 +37,9 @@ SIGNATURES = {
     "hash_table": {
         "group_insert_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _P],
+        "group_insert_shift": [_I, _I, _I],
         "insert_scratch_bytes": [_I, _I, _I],
+        "join_insert_shift": [_I, _I],
         "join_insert_launch": [_P, _P, _P, _P, _I, _I, _I, _P],
         "join_probe_launch": [_P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _L, _I, _I, _P],

@@ -39,22 +39,17 @@ _NAN64_BITS = 0x7FF8000000000000
 _NAN32_BITS = 0x7FC00000
 
 # Launch plans of the inserts (csrc/hash_table.cu), set by measurement on
-# an H100 (PERF.md): group_insert takes the partitioned path from
-# GROUP_PARTITION_MIN_ROWS rows (its global kernel slows with the rows,
-# as equal keys come in runs, whatever the table's size), join_insert from
-# a slot_row of JOIN_PARTITION_MIN_BYTES (past the 50 MB L2), with ranges
-# of 2^GROUP_RANGE_BITS and 2^JOIN_RANGE_BITS slots: more where a table
-# would have more than MAX_RANGES ranges, fewer (down to 2^MIN_RANGE_BITS)
-# where a range's shared table would not fit in one block. A table of
-# fewer than MIN_RANGES ranges stays on the global path.
-GROUP_PARTITION_MIN_ROWS = 1 << 18
+# an H100 (PERF.md): group_insert asks for the partitioned path from
+# GROUP_PARTITION_MIN_ROWS rows (the aggregate's merge steps, a group
+# table in slot order then a scan batch, and one-call inserts alike),
+# join_insert from a slot_row of JOIN_PARTITION_MIN_BYTES (past the 50 MB
+# L2), with ranges of 2^GROUP_RANGE_BITS and 2^JOIN_RANGE_BITS slots. The
+# library says which split a table can take (`*_insert_shift`: 0, the
+# global path, where the ranges would not fit).
+GROUP_PARTITION_MIN_ROWS = 1 << 19
 JOIN_PARTITION_MIN_BYTES = 64 << 20
 GROUP_RANGE_BITS = 12
 JOIN_RANGE_BITS = 13
-MIN_RANGE_BITS = 10  # a slot a thread of a range block
-MIN_RANGES = 64
-MAX_RANGES = 8192  # ranges one launch takes (the scatter's shared counts)
-RANGE_SMEM_BYTES = 232448 - 64  # a range block's shared table, at most
 
 
 # ---------------------------------------------------------------------------
@@ -189,36 +184,16 @@ def group_insert_plain(planes, slot0, live, cap: int):
             torch.tensor(ovf, dtype=torch.int32))
 
 
-def _range_bits(tcap: int, slot_bytes: int, bits: int) -> int:
-    """log2 of a range's slots on the partitioned path: `bits`, more while
-    the table would have more than MAX_RANGES ranges, fewer while a
-    range's shared table (slot_bytes a slot) would not fit in a block; 0
-    (the global path) where no range size between 2^MIN_RANGE_BITS and
-    tcap / MIN_RANGES fits."""
-    shift = max(bits, tcap.bit_length() - MAX_RANGES.bit_length())
-    while shift > MIN_RANGE_BITS and slot_bytes << shift > RANGE_SMEM_BYTES:
-        shift -= 1
-    if (slot_bytes << shift > RANGE_SMEM_BYTES or tcap >> shift < MIN_RANGES
-            or tcap >> shift > MAX_RANGES):
-        return 0
-    return shift
-
-
-def group_insert_plan(n: int, k: int, cap: int) -> int:
-    """group_insert's path on the card for n rows of K key planes and
-    `cap`: 0 for the global kernel, else log2 of the slots of one range (a
-    slot holds K keys and its state word)."""
-    if n < GROUP_PARTITION_MIN_ROWS:
-        return 0
-    return _range_bits(2 * cap, 8 * k + 4, GROUP_RANGE_BITS)
+def group_insert_plan(n: int) -> int:
+    """The path group_insert asks for on the card for n rows: 0 for the
+    global kernel, else log2 of the slots of one range."""
+    return GROUP_RANGE_BITS if n >= GROUP_PARTITION_MIN_ROWS else 0
 
 
 def join_insert_plan(tcap: int) -> int:
-    """join_insert's path on the card: 0 for the global kernel, else log2
-    of the slots of one range (a slot holds one row index)."""
-    if 4 * tcap < JOIN_PARTITION_MIN_BYTES:
-        return 0
-    return _range_bits(tcap, 4, JOIN_RANGE_BITS)
+    """The path join_insert asks for on the card for tcap slots: 0 for the
+    global kernel, else log2 of the slots of one range."""
+    return JOIN_RANGE_BITS if 4 * tcap >= JOIN_PARTITION_MIN_BYTES else 0
 
 
 def _insert_scratch(n: int, tcap: int, shift: int, dev):
@@ -250,12 +225,20 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def group_insert_shift(n: int, k: int, cap: int,
+                       shift: Optional[int] = None) -> int:
+    """The path a launch takes: the plan's for n rows (or `shift`), where
+    the library admits it for K key planes and cap, else 0."""
+    if shift is None:
+        shift = group_insert_plan(n)
+    return library("hash_table").group_insert_shift(k, cap, shift)
+
+
 def _group_insert_cuda(planes, slot0, live, cap: int,
                        shift: Optional[int] = None):
     k, n = planes.shape
     dev = planes.device
-    if shift is None:
-        shift = group_insert_plan(n, k, cap)
+    shift = group_insert_shift(n, k, cap, shift)
     gid, table, occ, stat, scratch = group_insert_buffers(k, n, cap, shift,
                                                           dev)
     lib = library("hash_table")
@@ -316,11 +299,18 @@ def join_insert_buffers(n: int, tcap: int, shift: int, dev):
     return slot_row, _insert_scratch(n, tcap, shift, dev)
 
 
+def join_insert_shift(tcap: int, shift: Optional[int] = None) -> int:
+    """The path a launch takes: the plan's for tcap (or `shift`), where the
+    library admits it, else 0."""
+    if shift is None:
+        shift = join_insert_plan(tcap)
+    return library("hash_table").join_insert_shift(tcap, shift)
+
+
 def _join_insert_cuda(slot0, live, tcap: int, shift: Optional[int] = None):
     dev = slot0.device
     n = slot0.shape[0]
-    if shift is None:
-        shift = join_insert_plan(tcap)
+    shift = join_insert_shift(tcap, shift)
     slot_row, scratch = join_insert_buffers(n, tcap, shift, dev)
     lib = library("hash_table")
     join_insert.launches += 1

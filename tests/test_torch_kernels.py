@@ -182,44 +182,55 @@ def test_group_insert_overflow():
     assert int(ng) == cap and int(ovf) > 0
 
 
-# (rows, key planes, cap, shift): the Q3-hash SF 1 shape stays global;
-# from GROUP_PARTITION_MIN_ROWS rows ranges of 2^12 slots; wide keys
-# shrink a range to fit shared memory; a table of too few ranges, or
-# very wide keys, stays global
-@pytest.mark.parametrize("n,k,cap,shift", [
-    (65536, 3, 1 << 17, 0), (hk.GROUP_PARTITION_MIN_ROWS - 1, 1, 1 << 20, 0),
-    (6001215, 1, 1 << 21, 12), (6001215, 1, 1 << 20, 12),
-    (1 << 20, 8, 1 << 20, 11), (1 << 20, 1, 1 << 10, 0),
-    (1 << 20, 400, 1 << 20, 0)])
-def test_group_insert_plan(n, k, cap, shift):
-    assert hk.group_insert_plan(n, k, cap) == shift
+# (rows, shift): the Q3-hash SF 1 shape and the aggregate's merge steps up
+# to cap 2^17 (2 cap + 2^17 rows) stay global; from 2^19 rows (merge steps
+# from cap 2^18, Q18's lineitem in one call) ranges of 2^12 slots
+@pytest.mark.parametrize("n,shift", [
+    (65536, 0), (3 << 17, 0), (hk.GROUP_PARTITION_MIN_ROWS - 1, 0),
+    (1 << 19, 12), (5 << 17, 12), (6001215, 12)])
+def test_group_insert_plan(n, shift):
+    assert hk.group_insert_plan(n) == shift
 
 
-# (tcap, shift): global below a 64 MB slot_row (Q3 SF 1's 2^20 slots);
-# ranges of 2^13 slots, more slots a range where there would be more than
-# MAX_RANGES ranges, global where such a range would not fit
+# (tcap, shift): global below a 64 MB slot_row (Q3 SF 1's 2^20 slots, and
+# 2^23); ranges of 2^13 slots from 2^24 (Q3's orders at SF 10: 2^25)
 @pytest.mark.parametrize("tcap,shift", [
-    (1 << 20, 0), (1 << 23, 0), (1 << 24, 13), (1 << 25, 13), (1 << 27, 14),
-    (1 << 30, 0)])
+    (1 << 20, 0), (1 << 23, 0), (1 << 24, 13), (1 << 25, 13)])
 def test_join_insert_plan(tcap, shift):
     assert hk.join_insert_plan(tcap) == shift
 
 
-def test_insert_plan_range_split():
-    """A chain that runs past a range end continues in the next range, and
-    past the table end in range 0: the split the partitioned path's spill
-    pass exists for, at the plan of Q3's SF 10 build side."""
-    tcap = 1 << 25
-    shift = hk.join_insert_plan(tcap)
-    r = 1 << shift
+def _boundary_slot0(rng, n, tcap, where, span=1 << 9):
+    """slot0 a few slots before the end of a span of 2^9 slots (chains
+    run on into the next span) or before the table's end (chains wrap to
+    slot 0): where the card's partitioned build splits its ranges."""
+    if where == "range ends":
+        ends = (rng.integers(0, tcap // span, n) + 1) * span - 1
+        return (ends - rng.integers(0, 24, n)).astype(np.int32)
+    return (tcap - 1 - rng.integers(0, 40, n)).astype(np.int32)
 
-    def ranges(s0, length):
-        return sorted({((s0 + j) & (tcap - 1)) >> shift
-                       for j in range(length)})
 
-    assert ranges(5 * r - 3, 3) == [4]
-    assert ranges(5 * r - 3, 5) == [4, 5]
-    assert ranges(tcap - 2, 4) == [0, (tcap >> shift) - 1]
+@pytest.mark.parametrize("kernel", ["group_insert", "join_insert"])
+@pytest.mark.parametrize("where", ["range ends", "table end"])
+def test_inserts_chains_across_range_and_table_ends(kernel, where):
+    """Clustered slot0s: long chains that cross span ends and wrap from the
+    last slot to slot 0, equal to the serial Pallas kernel."""
+    rng = np.random.default_rng(7 + (where == "table end"))
+    n, cap = 700, 512
+    tcap = 2 * cap
+    slot0 = _boundary_slot0(rng, n, tcap, where)
+    live = rng.random(n) < 0.9
+    if kernel == "join_insert":
+        ref = ref_ph.join_insert(jnp.asarray(slot0), jnp.asarray(live), tcap,
+                                 interpret=True)
+        _eq(hk.join_insert(_t(slot0), _t(live), tcap), ref)
+        return
+    # equal keys share a slot0: 400 keys, each at one of the clustered slots
+    pick = rng.integers(0, 400, n)
+    planes = np.stack([pick * 3, pick % 7]).astype(np.int64)
+    _, _, _, ng, ovf = _group_insert_both(planes, slot0[pick], live, cap)
+    assert int(ng) == len(set(pick[live]))
+    assert int(ovf) == 0
 
 
 def test_group_insert_rejects_non_pow2_cap():
