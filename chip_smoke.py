@@ -19,6 +19,21 @@
    four at SF 0.01 must give identical frames on the card and on the CPU.
    Launch counts are reset just before and read just after the SF 1 runs;
    every kernel must have launched.
+   Then the 22 TPC-H queries (presto_tpu_torch/catalog/tpch_queries.py) at
+   SF 1 under breaker_engine=auto and hash: the two engines must give the
+   same frame (row for row where ORDER BY fixes the order; where it ties,
+   the ordering columns row for row and the rows as a multiset), and Q1,
+   Q3, Q4, Q6, Q13, Q18 and Q21 must equal numpy/pandas oracles. Each
+   query's launch counts are reset just before its first run and read
+   just after; Q18 under hash must launch join_insert and join_probe (its
+   SemiJoin) and group_insert (its GROUP BY l_orderkey). Each prints its
+   warm median of 3, lineitem rows/s and the device time of one more run
+   (torch.profiler). Every query must return rows (Q11 with TPC-H's
+   FRACTION = 0.0001 / SF). One more run of each query under hash records
+   each kernel's largest input, which is launched again and held to its
+   contract (grouped_sums against its plain version, the others by their
+   invariants). At SF 0.01 all 44 runs must give the same frame on the
+   card as on the CPU.
 4. Timing phase: each kernel on the largest inputs its launcher saw in
    the query phase, three CUDA-event times: the kernel alone (the bare
    C launch, its memsets included, on outputs allocated once, events
@@ -27,19 +42,25 @@
    each launch by a 128 MB write and a 128 MB read; the launcher (the
    kernel plus its outputs' allocation); the public wrapper. Beside them
    the plain version's time and result, the bound (bytes of the distinct
-   inputs read once and outputs written once, over 3.35 TB/s), which the
-   cold time must not beat, and for grouped_sums one `index_add_` call.
+   inputs read once and outputs written once, over 3.35 TB/s; of
+   join_probe's table only the slots and keys its walks reach,
+   `probe_bytes`), which the cold time must not beat, and for grouped_sums
+   one `index_add_` call.
    Then group_insert and join_insert at large shapes built on the card
    (Q18's GROUP BY l_orderkey at SF 1 in one call, twice: cap 2^21 and,
    overflowing, 2^20; the merge steps LocalRunner's aggregate gives it for
    that query, at caps 2^19 to 2^21: the previous group table, then a scan
    batch; Q3's orders build side at SF 10), checked by their invariants
    and timed the same way, cold and warm; their serial plain versions are
-   not run there.
+   not run there. Last, each kernel on the 22-query phase's inputs (per
+   kernel the largest of the 22 queries under hash, and join_insert's and
+   join_probe's in the queries with a hash SemiJoin), timed the same way.
 
-Prints a `kernels` JSON line (`ms` is the cold kernel-alone time where
-one was taken; `large` holds the large shapes, `ms` cold and `ms_warm`),
-then as its last line
+Prints a `tpch22` JSON line (each query and engine: rows, warm median,
+first run, lineitem rows/s, launches, device time), a `kernels` JSON line
+(`ms` is the cold kernel-alone time where one was taken; `large` holds the
+large shapes, `ms` cold and `ms_warm`), the run's duration, then as its
+last line
 {"ok": true, "device": {...}}. Any failed check raises (non-zero exit,
 no ok line). Exits non-zero at once without CUDA or without the package.
 """
@@ -447,6 +468,63 @@ def check_join_probe(torch, slot0, pkeys, plive, slot_row, bkeys, fanout,
     return err
 
 
+def probe_invariants(torch, slot0, pkeys, plive, slot_row, bkeys, fanout,
+                     out):
+    """join_probe's contract, checked on the card with torch alone (the
+    serial walk, vectorised): a live probe row counts the build rows with
+    its key in the slots reachable from its slot0 over occupied slots
+    (with wrap-around), a dead row 0; the overflow is the number of rows
+    counting more than fanout; a row's first min(count, fanout) entries
+    are distinct such build rows, the rest -1. Returns (live probe rows,
+    matches)."""
+    mm, cnt, ovf = out
+    dev = slot0.device
+    n, m, tcap = slot0.shape[0], bkeys.shape[1], slot_row.shape[0]
+    occ = slot_row >= 0
+    run = occupied_runs(torch, occ)
+    slots = torch.nonzero(occ).flatten()
+    rows = slot_row[slots].long()
+    # one id per distinct key over the probe rows and the table's rows
+    both = torch.cat([pkeys.T, bkeys.T[rows]])
+    ids = (both[:, 0] if both.shape[1] == 1
+           else torch.unique(both, dim=0, return_inverse=True)[1])
+    pid, bid = ids[:n], ids[n:]
+    order = torch.argsort(bid)
+    bid, bslot = bid[order], slots[order]
+    lo = torch.searchsorted(bid, pid)
+    span = torch.where(plive, torch.searchsorted(bid, pid, right=True) - lo,
+                       0)
+    pr = torch.repeat_interleave(torch.arange(n, device=dev), span)
+    first = torch.cumsum(span, 0) - span
+    at = torch.arange(pr.numel(), device=dev) - first[pr] + lo[pr]
+    ps = bslot[at]
+    reach = run[ps] > (ps - slot0.long()[pr]) % tcap
+    want = torch.zeros(n, dtype=torch.long, device=dev).index_add_(
+        0, pr[reach], torch.ones_like(pr[reach]))
+    require(torch.equal(cnt.long(), want), "join_probe: counts differ from "
+            "the build rows reachable with the probe's key")
+    require(int(ovf) == int((want > fanout).sum()),
+            "join_probe: overflow differs from the rows past fanout")
+    filled = (torch.arange(fanout, device=dev)[None, :]
+              < torch.clamp(want, max=fanout)[:, None])
+    require(bool((mm[~filled] == -1).all()), "join_probe: padding is not -1")
+    got = mm[filled].long()
+    grow = torch.arange(n, device=dev)[:, None].expand(n, fanout)[filled]
+    require(bool(((got >= 0) & (got < m)).all()),
+            "join_probe: a match is not a build row")
+    slot_of = torch.full((m,), -1, dtype=torch.long, device=dev)
+    slot_of[rows] = slots
+    s = slot_of[got]
+    require(bool((s >= 0).all()), "join_probe: a match is not in the table")
+    require(bool((bkeys[:, got] == pkeys[:, grow]).all()),
+            "join_probe: a match has another key")
+    require(bool((run[s] > (s - slot0.long()[grow]) % tcap).all()),
+            "join_probe: a match is not reachable from the row's slot0")
+    require(torch.unique(grow * m + got).numel() == got.numel(),
+            "join_probe: a row records one match twice")
+    return int(plive.sum()), int(want.sum())
+
+
 def synthetic_planes(torch, rng, n, k, distinct, dev):
     import numpy as np
 
@@ -693,16 +771,6 @@ def frames_equal(got, want, label) -> None:
         require(g == w, f"{label}: column {c} differs: {g[:4]} vs {w[:4]}")
 
 
-def frames_equal_q3(got, want, label) -> None:
-    """Q3's ORDER BY may tie: the ordering keys must match row for row and
-    the rows as a set."""
-    frames_equal(got[["revenue", "o_orderdate"]],
-                 want[["revenue", "o_orderdate"]], label)
-    key = ["revenue", "o_orderdate", "l_orderkey"]
-    frames_equal(got.sort_values(key, ignore_index=True),
-                 want.sort_values(key, ignore_index=True), label)
-
-
 def _tensors(obj):
     """Every tensor in a launcher's arguments (lists and tuples opened)."""
     if hasattr(obj, "numel"):
@@ -758,6 +826,18 @@ class Recorder:
             setattr(mod, attr, fn)
 
 
+def record_run(torch, run):
+    """name -> (size, arguments): the largest input each kernel launcher
+    saw during one call of `run`."""
+    rec = Recorder(torch)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        rec.close()
+    return rec.inputs
+
+
 def timed_runs(torch, runner, sql, reps=3):
     runner.run(sql)  # warm-up
     ts = []
@@ -800,16 +880,14 @@ def phase_queries(torch):
     launches = launch_counts()
     print(f"launches during the SF {SF} query phase: {json.dumps(launches)}")
     for label, q, eng in RUNS:
-        check = frames_equal_q3 if q == "q3" else frames_equal
-        check(results[label], oracles[q], f"{label} SF {SF}")
+        check_oracle(results[label], oracles[q], q, f"{label} SF {SF}")
         print(f"query {label} (breaker_engine={eng}) SF {SF}: "
               f"{len(results[label])} rows equal to the numpy oracle (exact)")
 
     timings = {}
     for label, q, eng in RUNS:
         out, sec = timed_runs(torch, runners[eng], QUERIES[q])
-        check = frames_equal_q3 if q == "q3" else frames_equal
-        check(out, oracles[q], f"{label} SF {SF} warm")
+        check_oracle(out, oracles[q], q, f"{label} SF {SF} warm")
         timings[label] = sec
         print(f"query {label} (breaker_engine={eng}) SF {SF}: warm median of 3 "
               f"{sec * 1e3:.1f} ms, {n_lineitem / sec:.4g} lineitem rows/s")
@@ -824,7 +902,366 @@ def phase_queries(torch):
         print(f"query {label} SF {SMALL_SF}: card result identical to the CPU")
     for name, n in launches.items():
         require(n > 0, f"kernel {name} never launched on the query path")
-    return launches, recorder.inputs, timings
+    return launches, recorder.inputs, timings, cat
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the 22 TPC-H queries
+
+# the output columns of each query's ORDER BY (None: one row)
+ORDER_KEYS = {
+    "q1": ["l_returnflag", "l_linestatus"],
+    "q2": ["s_acctbal", "n_name", "s_name", "p_partkey"],
+    "q3": ["revenue", "o_orderdate"], "q4": ["o_orderpriority"],
+    "q5": ["revenue"], "q6": None,
+    "q7": ["supp_nation", "cust_nation", "l_year"], "q8": ["o_year"],
+    "q9": ["nation", "o_year"], "q10": ["revenue"], "q11": ["value"],
+    "q12": ["l_shipmode"], "q13": ["custdist", "c_count"], "q14": None,
+    "q15": ["s_suppkey"], "q16": ["supplier_cnt", "p_brand", "p_type", "p_size"],
+    "q17": None, "q18": ["o_totalprice", "o_orderdate"], "q19": None,
+    "q20": ["s_name"], "q21": ["numwait", "s_name"], "q22": ["cntrycode"],
+}
+ENGINES = ("auto", "hash")
+# the queries whose SemiJoins take the hash engine (no residual): their
+# join_insert builds keep duplicate keys (Q4's lineitem, Q22's orders)
+SEMI_HASH = ("q4", "q16", "q18", "q20", "q22")
+# Q11's HAVING fraction: the query text's constant leaves no row at SF 1;
+# the SF run takes TPC-H's FRACTION = 0.0001 / SF instead
+Q11_FRACTION = "* 0.0005"
+
+
+def at_scale(q, sql, sf):
+    """The text of query q as run at scale factor sf."""
+    if q != "q11":
+        return sql
+    require(sql.count(Q11_FRACTION) == 1, "q11: its fraction is not in the "
+            "text")
+    return sql.replace(Q11_FRACTION, f"* {0.0001 / sf!r}")
+
+
+def check_recorded(torch, inputs, errs):
+    """Each kernel's largest input in one hash-engine run of a query,
+    launched again and held to its contract on the card: grouped_sums
+    against its plain version, the others by their invariants (their
+    serial plain versions are too slow at these sizes). Returns
+    name -> text of what was checked."""
+    from presto_tpu_torch.ops import hash_kernels as hk
+
+    done = {}
+    for name, (_, args) in inputs.items():
+        if name == "grouped_sums":
+            errs[name] = max(errs[name], check_grouped_sums(torch, *args))
+            done[name] = f"n={args[0].shape[0]} S={len(args[1])} G={args[2]}"
+        elif name == "group_insert":
+            planes, _, live, cap = args
+            ng, ovf, _ = group_invariants(
+                torch, planes, live, cap, hk._group_insert_cuda(*args))
+            done[name] = (f"n={planes.shape[1]} K={planes.shape[0]} "
+                          f"cap={cap} groups={ng} overflow={ovf}")
+        elif name == "join_insert":
+            slot0, live, tcap = args
+            join_invariants(torch, slot0, live, hk._join_insert_cuda(*args))
+            done[name] = (f"n={slot0.shape[0]} tcap={tcap} "
+                          f"live={int(live.sum())} distinct live slot0="
+                          f"{torch.unique(slot0[live]).numel()}")
+        else:
+            slot0, pkeys, plive, slot_row, bkeys, f = args
+            rows, matches = probe_invariants(
+                torch, slot0, pkeys, plive, slot_row, bkeys, f,
+                hk._join_probe_cuda(*args))
+            done[name] = (f"n={slot0.shape[0]} K={pkeys.shape[0]} F={f} "
+                          f"build={bkeys.shape[1]} live={rows} "
+                          f"matches={matches}")
+        torch.cuda.synchronize()
+    return done
+
+
+def _nulls_as_none(col):
+    return [None if v is None or (isinstance(v, float) and v != v) else v
+            for v in col]
+
+
+def columns_equal(got, want, label) -> None:
+    """Column by column: floats to rtol=1e-12 (the JAX package's tolerance
+    between its own engines), everything else exactly."""
+    import numpy as np
+
+    require(list(got.columns) == list(want.columns),
+            f"{label}: columns {list(got.columns)} vs {list(want.columns)}")
+    require(len(got) == len(want), f"{label}: {len(got)} rows vs {len(want)}")
+    for c in want.columns:
+        g, w = _nulls_as_none(got[c]), _nulls_as_none(want[c])
+        present = [v for v in g + w if v is not None]
+        if present and all(isinstance(v, float) for v in present):
+            ok = ([v is None for v in g] == [v is None for v in w]
+                  and np.allclose([0.0 if v is None else v for v in g],
+                                  [0.0 if v is None else v for v in w],
+                                  rtol=1e-12, atol=0.0))
+        else:
+            ok = g == w
+        require(ok, f"{label}: column {c} differs: {g[:4]} vs {w[:4]}")
+
+
+def _as_multiset(df):
+    """The frame's rows in an order of their own values (floats to 9
+    digits), so two frames with the same rows line up."""
+    import pandas as pd
+
+    key = pd.DataFrame({c: (df[c].map(lambda v: f"{v:.9g}")
+                            if df[c].dtype.kind == "f" else df[c].astype(str))
+                        for c in df.columns})
+    return df.loc[key.sort_values(list(key.columns), kind="stable").index
+                  ].reset_index(drop=True)
+
+
+def frames_agree(got, want, keys, label) -> str:
+    """Identical frames, or (where the ORDER BY ties) the ordering columns
+    row for row and the rows as a multiset. Returns which held."""
+    if got.equals(want):
+        return "identical"
+    if keys:
+        columns_equal(got[keys], want[keys], f"{label} (ordering columns)")
+    columns_equal(_as_multiset(got), _as_multiset(want), f"{label} (rows)")
+    return "equal up to ties" if keys else "equal"
+
+
+def check_oracle(got, want, q, label) -> None:
+    """Q1 and Q6 exactly (one row or groups in key order); the others where
+    their ORDER BY may tie: the ordering columns row for row, the rows as a
+    multiset."""
+    if q in ("q1", "q6"):
+        frames_equal(got, want, label)
+    else:
+        frames_agree(got, want, ORDER_KEYS[q], label)
+
+
+def oracle22(conn, label):
+    """Q4, Q13, Q18 and Q21 from the tables' unscaled integers and
+    dictionary codes with numpy and pandas: EXISTS, LEFT JOIN with
+    count(col) and NOT LIKE, IN with GROUP BY ... HAVING, and EXISTS /
+    NOT EXISTS with a residual."""
+    import numpy as np
+    import pandas as pd
+    from decimal import Decimal
+
+    def table(name):
+        conn.get_table(name)
+        return conn.tables[name]
+
+    def strings(t, col, codes):
+        return [str(v) for v in t.dicts[col].values[codes]]
+
+    li, od = table("lineitem"), table("orders")
+    a, o = li.arrays, od.arrays
+    if label == "q4":
+        late = a["l_orderkey"][a["l_commitdate"] < a["l_receiptdate"]]
+        m = ((o["o_orderdate"] >= _days(1993, 7, 1))
+             & (o["o_orderdate"] < _days(1993, 10, 1))
+             & np.isin(o["o_orderkey"], np.unique(late)))
+        codes, n = np.unique(o["o_orderpriority"][m], return_counts=True)
+        return pd.DataFrame({
+            "o_orderpriority": strings(od, "o_orderpriority", codes),
+            "order_count": n.astype(np.int64)})
+    if label == "q13":
+        cu = table("customer").arrays
+        special = np.array(["comment 1" in str(v)
+                            for v in od.dicts["o_comment"].values])
+        keep = ~special[o["o_comment"]]
+        per = np.bincount(o["o_custkey"][keep],
+                          minlength=int(cu["c_custkey"].max()) + 1)
+        c_count, custdist = np.unique(per[cu["c_custkey"]], return_counts=True)
+        df = pd.DataFrame({"c_count": c_count.astype(np.int64),
+                           "custdist": custdist.astype(np.int64)})
+        return df.sort_values(["custdist", "c_count"], ascending=False,
+                              ignore_index=True)
+    if label == "q18":
+        cu = table("customer")
+        qty = pd.Series(a["l_quantity"]).groupby(a["l_orderkey"]).sum()
+        big = qty[qty > 250]
+        m = np.isin(o["o_orderkey"], big.index.to_numpy())
+        df = pd.DataFrame({"c_custkey": o["o_custkey"][m],
+                           "o_orderkey": o["o_orderkey"][m],
+                           "o_orderdate": o["o_orderdate"][m],
+                           "price": o["o_totalprice"][m]})
+        crow = pd.Series(np.arange(cu.num_rows), index=cu.arrays["c_custkey"])
+        df["c_name"] = strings(cu, "c_name", cu.arrays["c_name"][
+            crow[df["c_custkey"]].to_numpy()])
+        df["total_qty"] = big[df["o_orderkey"]].to_numpy()
+        df = df.sort_values(["price", "o_orderdate"], ascending=[False, True],
+                            kind="stable").head(100)
+        return pd.DataFrame({
+            "c_name": df["c_name"].to_numpy(),
+            "c_custkey": df["c_custkey"].to_numpy(),
+            "o_orderkey": df["o_orderkey"].to_numpy(),
+            "o_orderdate": df["o_orderdate"].to_numpy(),
+            "o_totalprice": [Decimal(int(v)).scaleb(-2) for v in df["price"]],
+            "total_qty": df["total_qty"].to_numpy()})
+    assert label == "q21", label
+    su, na = table("supplier"), table("nation")
+    saudi = na.arrays["n_nationkey"][
+        na.arrays["n_name"] == na.dicts["n_name"].code_of("SAUDI ARABIA")]
+    supp = su.arrays["s_suppkey"][np.isin(su.arrays["s_nationkey"], saudi)]
+    final = o["o_orderkey"][
+        o["o_orderstatus"] == od.dicts["o_orderstatus"].code_of("F")]
+    lines = pd.DataFrame({"o": a["l_orderkey"], "s": a["l_suppkey"],
+                          "late": a["l_receiptdate"] > a["l_commitdate"]})
+    l1 = lines[lines["late"] & np.isin(lines["s"], supp)
+               & np.isin(lines["o"], final)]
+    # lines of the order, and of the order by the same supplier: all and late
+    n_o = lines.groupby("o").size().rename("n_o")
+    n_os = lines.groupby(["o", "s"]).size().rename("n_os")
+    late = lines[lines["late"]]
+    k_o = late.groupby("o").size().rename("k_o")
+    k_os = late.groupby(["o", "s"]).size().rename("k_os")
+    l1 = (l1.join(n_o, on="o").join(n_os, on=["o", "s"])
+          .join(k_o, on="o").join(k_os, on=["o", "s"]).fillna(0))
+    keep = (l1["n_o"] > l1["n_os"]) & ~(l1["k_o"] > l1["k_os"])
+    numwait = l1[keep].groupby("s").size()
+    srow = pd.Series(np.arange(su.num_rows), index=su.arrays["s_suppkey"])
+    df = pd.DataFrame({"s_name": strings(su, "s_name", su.arrays["s_name"][
+        srow[numwait.index].to_numpy()]),
+        "numwait": numwait.to_numpy().astype(np.int64)})
+    return df.sort_values(["numwait", "s_name"], ascending=[False, True],
+                          ignore_index=True).head(100)
+
+
+# the port's CUDA kernels, by the names of their __global__ functions
+PORT_KERNELS = ("grouped_sums", "group_insert", "group_range", "join_insert",
+                "join_probe", "join_range", "range_count", "range_scatter")
+
+
+def device_profile(torch, run):
+    """Device time of one call of `run` by torch.profiler (CUDA activity):
+    every kernel, memset and copy, in ms; the port's kernels' share; the
+    three largest entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if t > 0:
+            times[e.key] = t / 1e3
+    ours = sum(t for k, t in times.items()
+               if any(n in k for n in PORT_KERNELS))
+    top = sorted(times.items(), key=lambda kv: -kv[1])[:3]
+    return {"device_ms": sum(times.values()), "port_kernels_ms": ours,
+            "top": [[k[:48], t] for k, t in top]}
+
+
+def phase_tpch22(torch, cat, errs):
+    """The 22 TPC-H queries on the card under breaker_engine auto and hash:
+    each returns rows (Q11 with TPC-H's fraction for the scale factor, see
+    `at_scale`); the engines must agree; Q1, Q3, Q4, Q6, Q13, Q18 and Q21
+    must equal their oracles; each query's launches come from its first
+    run (counts reset just before it, read just after), and Q18 under hash
+    must have run its SemiJoin on join_insert and join_probe and its GROUP
+    BY l_orderkey on group_insert; then the warm median of 3 and lineitem
+    rows/s, and the device time of one more run (torch.profiler): all of
+    it, the port's kernels' part, and the three largest entries. One more
+    run under hash records each kernel's largest input, which
+    `check_recorded` holds to its contract. At SF 0.01 every query under
+    both engines must give the same frame on the card as on the CPU.
+    Returns name -> [(label, arguments)]: the inputs the timing phase
+    times, per kernel the largest of the 22 queries and, for join_insert
+    and join_probe, those of the SEMI_HASH queries."""
+    from presto_tpu_torch.catalog.tpch import tpch_catalog
+    from presto_tpu_torch.catalog.tpch_queries import QUERIES as TPCH
+    from presto_tpu_torch.exec import ExecConfig, LocalRunner
+    from presto_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    conn = cat.connectors["tpch"]
+    t0 = time.perf_counter()
+    for t in conn.table_names():
+        conn.get_table(t)
+    n_lineitem = conn.tables["lineitem"].num_rows
+    oracles = {q: oracle(conn, q) for q in ("q1", "q3", "q6")}
+    oracles.update({q: oracle22(conn, q) for q in ("q4", "q13", "q18", "q21")})
+    print(f"tpch22: tables and oracles ready in {time.perf_counter() - t0:.1f} s")
+    runners = {e: LocalRunner(cat, ExecConfig(breaker_engine=e))
+               for e in ENGINES}
+    summary = []
+    largest, semi = {}, {}
+    for q, text in TPCH.items():
+        sql = at_scale(q, text, SF)
+        outs = {}
+        for eng in ENGINES:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = runners[eng].run(sql)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t1
+            launches = {k: v for k, v in launch_counts().items() if v}
+            if q == "q18" and eng == "hash":
+                for k in ("join_insert", "join_probe", "group_insert"):
+                    require(launches.get(k, 0) > 0,
+                            f"q18 hash: {k} did not launch")
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                again = runners[eng].run(sql)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t1)
+            require(len(out) > 0, f"{q} {eng} SF {SF}: no row")
+            frames_agree(again, out, ORDER_KEYS[q], f"{q} {eng} rerun")
+            sec = statistics.median(ts)
+            dev = device_profile(torch, lambda: runners[eng].run(sql))
+            outs[eng] = out
+            if q in oracles:
+                check_oracle(out, oracles[q], q, f"{q} {eng} SF {SF} oracle")
+            summary.append({"query": q, "engine": eng, "rows": len(out),
+                            "warm_ms": sec * 1e3, "first_ms": first * 1e3,
+                            "lineitem_rows_per_s": n_lineitem / sec,
+                            "launches": launches, **dev})
+            print(f"tpch {q} {eng} SF {SF}: {len(out)} rows; warm median of 3 "
+                  f"{sec * 1e3:.1f} ms, {n_lineitem / sec:.4g} lineitem "
+                  f"rows/s; first run {first * 1e3:.1f} ms; launches "
+                  f"{json.dumps(launches)}; device time of one run "
+                  f"{dev['device_ms']:.2f} ms ({dev['device_ms'] / sec / 10:.1f} "
+                  f"% of the warm median), the port's kernels "
+                  f"{dev['port_kernels_ms']:.3f} ms; largest "
+                  f"{json.dumps(dev['top'])}"
+                  + ("; equal to the oracle (exact)" if q in oracles else ""))
+        how = frames_agree(outs["hash"], outs["auto"], ORDER_KEYS[q],
+                           f"{q} SF {SF} hash vs auto")
+        print(f"tpch {q} SF {SF}: hash and auto {how}")
+        inputs = record_run(torch, lambda: runners["hash"].run(sql))
+        done = check_recorded(torch, inputs, errs)
+        print(f"tpch {q} hash SF {SF}: each kernel's largest input holds its "
+              f"contract: {json.dumps(done)}")
+        for name, (size, args) in inputs.items():
+            if size > largest.get(name, (0, None, None))[0]:
+                largest[name] = (size, q, args)
+            if q in SEMI_HASH and name in ("join_insert", "join_probe"):
+                semi.setdefault(name, []).append((q, args))
+        del inputs
+
+    small = tpch_catalog(SMALL_SF)
+    hows = {}
+    for q, sql in TPCH.items():
+        for eng in ENGINES:
+            cfg = ExecConfig(breaker_engine=eng)
+            on_gpu = LocalRunner(small, cfg).run(sql)
+            on_cpu = LocalRunner(small, cfg, device="cpu").run(sql)
+            hows[f"{q} {eng}"] = frames_agree(
+                on_gpu, on_cpu, ORDER_KEYS[q],
+                f"{q} {eng} SF {SMALL_SF} card vs CPU")
+    print(f"tpch22 SF {SMALL_SF}: card against CPU for 44 runs: "
+          f"{json.dumps(hows)}")
+    print(json.dumps({"tpch22": summary}))
+    timed = {}
+    for name, (_, q, args) in largest.items():
+        timed[name] = [(f"{q} hash SF {SF}, the largest of the 22", args)]
+        timed[name] += [(f"{sq} hash SF {SF} (hash SemiJoin), its largest",
+                         a) for sq, a in semi.get(name, []) if sq != q]
+    return timed
 
 
 # ---------------------------------------------------------------------------
@@ -962,6 +1399,40 @@ def _bare_join_insert(torch, lib, sp, slot0, live, tcap, shift=None):
             f"n={n} tcap={tcap}, {_path(shift)}", slot_row)
 
 
+def probe_bytes(torch, slot0, pkeys, plive, slot_row, bkeys, f):
+    """Bytes join_probe must move on these inputs: the probe rows' slot0,
+    keys and live flags read once, its outputs written once, and of the
+    table only what the live rows' walks reach: each distinct slot visited
+    (up to the free slot that ends a walk) read once, and the key of each
+    distinct occupied slot visited."""
+    k, n = pkeys.shape
+    tcap = slot_row.shape[0]
+    moved = (n * (slot0.element_size() + k * pkeys.element_size()
+                  + plive.element_size()) + n * f * 4 + n * 4 + 4)
+    occ = slot_row >= 0
+    free = torch.nonzero(~occ).flatten()
+    s = slot0[plive].long()
+    if s.numel() == 0:
+        return moved
+    if free.numel() == 0:
+        return moved + tcap * (slot_row.element_size()
+                               + k * bkeys.element_size())
+    idx = torch.arange(tcap, device=slot0.device)
+    # the first free slot at or after each slot, past tcap where it wraps
+    nxt = torch.where(occ, 2 * tcap, idx).flip(0).cummin(0).values.flip(0)
+    nxt = torch.where(nxt >= 2 * tcap, free[0] + tcap, nxt)
+    end = nxt[s]
+    # each walk ends at a free slot; the walks that end at one cover the
+    # slots from the farthest start to it
+    far = torch.zeros(tcap, dtype=torch.long, device=slot0.device)
+    far.scatter_reduce_(0, end % tcap, end - s, "amax")
+    ends = torch.unique(end % tcap)
+    visited = int((far[ends] + 1).sum())
+    occupied = visited - ends.numel()
+    return (moved + visited * slot_row.element_size()
+            + occupied * k * bkeys.element_size())
+
+
 def _bare_join_probe(torch, lib, sp, slot0, pkeys, plive, slot_row, bkeys, f):
     k, n = pkeys.shape
     dev = slot0.device
@@ -976,8 +1447,8 @@ def _bare_join_probe(torch, lib, sp, slot0, pkeys, plive, slot_row, bkeys, f):
 
     def launch():
         _rc(lib.join_probe_launch(*args), "join_probe")
-    return (launch, distinct_bytes(slot0, pkeys, plive, slot_row, bkeys)
-            + n * f * 4 + n * 4 + 4,
+    return (launch, probe_bytes(torch, slot0, pkeys, plive, slot_row, bkeys,
+                                f),
             f"n={n} K={k} F={f} build={bkeys.shape[1]} "
             f"tcap={slot_row.shape[0]}", (mm, cnt, stat))
 
@@ -1177,18 +1648,58 @@ def time_large(torch, flush):
     rows["join_insert"].append(r)
     for name, rs in rows.items():
         for r in rs:
-            print(f"timing {name} [large: {r['shape']}; {r['check']}]: "
-                  f"kernel alone cold {r['ms']:.4f} ms, warm "
-                  f"{r['ms_warm']:.4f} ms; launcher {r['launcher']:.4f} ms; "
-                  f"wrapper {r['wrapper']:.4f} ms; plain: not run (serial); "
-                  f"bound {r['bound']:.5f} ms ({r['bytes']} bytes); "
-                  f"invariants hold")
-            require(r["ms"] >= r["bound"], f"{name} large: kernel-alone time "
-                    f"{r['ms']:.5f} ms beats its byte bound")
+            print_large(name, r)
     return rows
 
 
-def phase_timing(torch, inputs, errs):
+def print_large(name, r):
+    print(f"timing {name} [large: {r['shape']}; {r['check']}]: "
+          f"kernel alone cold {r['ms']:.4f} ms, warm "
+          f"{r['ms_warm']:.4f} ms; launcher {r['launcher']:.4f} ms; "
+          f"wrapper {r['wrapper']:.4f} ms; plain: not run (serial); "
+          f"bound {r['bound']:.5f} ms ({r['bytes']} bytes); "
+          f"invariants hold")
+    require(r["ms"] >= r["bound"], f"{name} large: kernel-alone time "
+            f"{r['ms']:.5f} ms beats its byte bound")
+
+
+def time_tpch22(torch, flush, timed):
+    """Time each kernel on the 22-query inputs the query phase kept
+    (`phase_tpch22`; already held to their contracts there), cold and
+    warm, as time_large does."""
+    from presto_tpu_torch.kernels._build import library, stream_ptr
+    from presto_tpu_torch.ops import groupby_kernels as gk
+    from presto_tpu_torch.ops import hash_kernels as hk
+
+    libs = {"grouped_sums": library("grouped_sums")}
+    libs.update(dict.fromkeys(("group_insert", "join_insert", "join_probe"),
+                              library("hash_table")))
+    bares = {"grouped_sums": _bare_grouped_sums,
+             "group_insert": _bare_group_insert,
+             "join_insert": _bare_join_insert, "join_probe": _bare_join_probe}
+    launchers = {"grouped_sums": (gk._grouped_sums_cuda, gk.grouped_sums),
+                 "group_insert": (hk._group_insert_cuda, hk.group_insert),
+                 "join_insert": (hk._join_insert_cuda, hk.join_insert),
+                 "join_probe": (hk._join_probe_cuda, hk.join_probe)}
+    sp = stream_ptr(torch.device("cuda"))
+    rows = {}
+    for name, cases in timed.items():
+        for label, args in cases:
+            r = _large_row(torch, bares[name](torch, libs[name], sp, *args),
+                           flush, _call(launchers[name][0], args),
+                           _call(launchers[name][1], args))
+            r["shape"] = f"tpch {label}: {r['shape']}"
+            r["check"] = "held to its contract in the query phase"
+            print_large(name, r)
+            rows.setdefault(name, []).append(r)
+    return rows
+
+
+def _call(fn, args):
+    return lambda: fn(*args)
+
+
+def phase_timing(torch, inputs, timed, errs):
     """Each kernel on the inputs the query phase handed its launcher:
     - kernel alone: the bare `lib.*_launch` on outputs allocated once
       (`bare_launches`), warm (inputs as the last launch left them in L2)
@@ -1202,7 +1713,8 @@ def phase_timing(torch, inputs, errs):
     - plain: the plain version on the same inputs; for grouped_sums also
       one `index_add_` call on the states stacked as int64.
     Then group_insert and join_insert at their large shapes (`time_large`,
-    cold and warm at every shape), where the serial plain versions are not
+    cold and warm at every shape), and each kernel on the 22-query inputs
+    `timed` (`time_tpch22`), where the serial plain versions are not
     run."""
     from presto_tpu_torch.ops import groupby_kernels as gk
     from presto_tpu_torch.ops import hash_kernels as hk
@@ -1295,6 +1807,8 @@ def phase_timing(torch, inputs, errs):
                         f"beats its byte bound {r['bound']:.5f} ms")
     for name, rs in time_large(torch, flush).items():
         rows[name]["large"] = rs
+    for name, rs in time_tpch22(torch, flush, timed).items():
+        rows[name].setdefault("large", []).extend(rs)
     return rows
 
 
@@ -1315,10 +1829,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     phase_build(torch)
     errs = phase_kernels(torch)
-    launches, inputs, _ = phase_queries(torch)
-    rows = phase_timing(torch, inputs, errs)
+    launches, inputs, _, cat = phase_queries(torch)
+    timed = phase_tpch22(torch, cat, errs)
+    del cat
+    rows = phase_timing(torch, inputs, timed, errs)
     kernels = []
     for name, r in rows.items():
         kernels.append({
@@ -1336,6 +1853,8 @@ def main() -> int:
                        "wrapper_ms": x["wrapper"], "plain_ms": None}
                       for x in r.get("large", [])]})
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

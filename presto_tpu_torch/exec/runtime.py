@@ -10,14 +10,17 @@ optimistic dispatch window — an aggregate confirms its group count on the
 host after every merge and replays that merge at a larger capacity on
 overflow.
 
-Operators: TableScan, Filter, Project, Aggregate (single step; sum,
-avg and count(*); global, small-domain, sort- and hash-engine grouping),
-inner HashJoin (sort and hash engines), Sort and TopN, Output: what TPC-H
-Q1, Q3 and Q6 run. Anything else raises NotImplementedError naming it.
-Not yet here: outer joins, other aggregates, scalar subqueries, Limit,
-GRACE/spilled aggregation, radix partitioning, adaptive execution,
-history-based optimization, multiway joins, semi/anti joins, set
-operations, windows, nested-loop and index joins, unnest.
+Operators: TableScan (also with no column read), Filter, Project,
+Aggregate (single step; sum, avg, count, count(*), count_if, min, max,
+arbitrary, bool_and/bool_or, and none for DISTINCT; global, small-domain,
+sort- and hash-engine grouping), HashJoin (inner, left and full; sort and
+hash engines), SemiJoin (semi, anti, null-aware NOT IN, residual EXISTS),
+Sort and TopN, Limit, Output, and uncorrelated scalar subqueries bound as
+constants: what the 22 TPC-H queries run. Anything else raises
+NotImplementedError naming it. Not yet here: GRACE/spilled aggregation,
+radix partitioning, adaptive execution, history-based optimization,
+multiway joins, set operations, windows, nested-loop and index joins,
+unnest.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from presto_tpu_torch.expr.compile import (
     compile_predicate,
     unscale,
 )
-from presto_tpu_torch.expr.ir import InputRef
+from presto_tpu_torch.expr.ir import Constant, InputRef, substitute_params
 from presto_tpu_torch.ops.grouping import KeyCol, StateCol, grouped_merge
 from presto_tpu_torch.ops.join import (
     align_probe_strings,
@@ -58,7 +61,7 @@ from presto_tpu_torch.ops.join import (
     probe_expand,
     probe_unique,
 )
-from presto_tpu_torch.ops.sort import SortKey, compact, sort_batch
+from presto_tpu_torch.ops.sort import SortKey, compact, limit_batch, sort_batch
 from presto_tpu_torch.plan.agg_states import (
     agg_state_layout,
     limb_pairs,
@@ -69,10 +72,12 @@ from presto_tpu_torch.plan.nodes import (
     Aggregate,
     Filter,
     HashJoin,
+    Limit,
     Output,
     PlanNode,
     Project,
     QueryPlan,
+    SemiJoin,
     Sort,
     TableScan,
 )
@@ -171,6 +176,12 @@ def _project(b: Batch, compiled) -> Batch:
             valid = torch.broadcast_to(valid, (b.capacity,))
         cols.append(Column(v.contiguous(), None if valid is None
                            else valid.contiguous()))
+        # a computed string column carries its own dictionary
+        dyn_dict = getattr(fn, "dyn_dict", None)
+        if dyn_dict is not None:
+            d = dyn_dict(b)
+            if d is not None:
+                dicts[s] = d
     return Batch(names, types, cols, b.live, dicts)
 
 
@@ -262,8 +273,20 @@ def _execute_base(base: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
     if isinstance(base, HashJoin):
         yield from _execute_join(base, ctx)
         return
+    if isinstance(base, SemiJoin):
+        yield from _execute_semijoin(base, ctx)
+        return
     if isinstance(base, Sort):
         yield from _execute_sort(base, ctx)
+        return
+    if isinstance(base, Limit):
+        remaining = base.count
+        for b in execute_node(base.child, ctx):
+            out = limit_batch(b, remaining)
+            remaining -= out.num_live()
+            yield out
+            if remaining <= 0:
+                return
         return
     if isinstance(base, Output):
         for b in execute_node(base.child, ctx):
@@ -283,9 +306,16 @@ def _scan_batches(scan: TableScan, ctx: ExecContext) -> Iterator[Batch]:
     columns = list(scan.assignments.values())
     symbols = list(scan.assignments.keys())
     if not columns:
-        raise NotImplementedError(
-            "scans that read no column are not supported by "
-            "presto_tpu_torch yet")
+        # count(*)-style scan: batches of liveness only
+        cap = round_up_capacity(min(nrows, ctx.config.batch_rows) or 1)
+        done = 0
+        while True:
+            take = min(cap, nrows - done)
+            live = torch.arange(cap, device=ctx.device) < take
+            yield Batch([], [], [], live, {})
+            done += take
+            if done >= nrows:
+                return
     nsplits = max(1, -(-nrows // ctx.config.batch_rows))
     cap = round_up_capacity(min(nrows, ctx.config.batch_rows) or 1)
     for split in conn.splits(handle, nsplits):
@@ -296,7 +326,9 @@ def _scan_batches(scan: TableScan, ctx: ExecContext) -> Iterator[Batch]:
 # -- aggregation --------------------------------------------------------------
 
 # aggregate functions this slice's accumulators implement
-_SUPPORTED_AGGS = {"sum", "count_star", "avg"}
+# (the planner writes every as bool_and and any_value as arbitrary)
+_SUPPORTED_AGGS = {"sum", "count_star", "count", "count_if", "avg", "min",
+                   "max", "arbitrary", "bool_and", "bool_or"}
 
 
 def _input_state(b: Batch, name: str, op: str, a, st: Type) -> StateCol:
@@ -304,9 +336,15 @@ def _input_state(b: Batch, name: str, op: str, a, st: Type) -> StateCol:
     accumulator `addInput` step)."""
     suffix = name[len(a.symbol):] if name.startswith(a.symbol) else ""
     if op == "count_add":
+        if a.fn == "count_if":
+            c = b.column(a.arg)
+            vals = c.values.to(torch.int64)
+            if c.validity is not None:
+                vals = torch.where(c.validity, vals, 0)
+            return StateCol(vals, None, "count_add")
         if a.fn == "count_star" or a.arg is None:
             return StateCol(b.live.to(torch.int64), None, "count_add")
-        # avg's count of valid inputs
+        # count(col) and avg's count: the valid inputs
         c = b.column(a.arg)
         return StateCol(c.valid_mask().to(torch.int64), None, "count_add")
     if suffix in ("$hi", "$sum_hi", "$lo", "$sum_lo"):
@@ -320,6 +358,13 @@ def _input_state(b: Batch, name: str, op: str, a, st: Type) -> StateCol:
             vals = c.values if c.hi is not None else (c.values & 0xFFFFFFFF)
         return StateCol(vals.to(torch.int64), c.validity, "sum")
     c = b.column(a.arg)
+    if a.fn in ("bool_and", "bool_or"):
+        return StateCol(c.values.to(torch.int8), c.validity, op)
+    if c.hi is not None:
+        # long-decimal input to min/max/arbitrary: the combined float64
+        # value scaled to the SQL value (the DOUBLE state type)
+        return StateCol(unscale(c.combined_f64(), b.type_of(a.arg).scale),
+                        c.validity, op)
     return StateCol(c.values.to(torch_dtype(st.dtype)), c.validity, op)
 
 
@@ -430,6 +475,11 @@ def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
                    for s in sout])
         names = list(key_syms) + [name for name, _, _ in layout]
         dicts = {k: b.dicts[k] for k in key_syms if k in b.dicts}
+        # string-valued min/max/arbitrary states keep the argument's
+        # dictionary
+        for name, op, a in layout:
+            if op in ("min", "max") and a.arg in b.dicts:
+                dicts[name] = b.dicts[a.arg]
         out = Batch(names, key_types + state_types, cols, out_live, dicts)
         return out, n_groups
 
@@ -502,8 +552,8 @@ def _finalize_aggregate(node: Aggregate, acc: Optional[Batch], steps,
         for a in node.aggs:
             vals = torch.zeros(128, dtype=torch_dtype(a.type.dtype),
                                device=device)
-            null = None if a.fn == "count_star" else \
-                torch.zeros(128, dtype=torch.bool, device=device)
+            null = (None if a.fn in ("count", "count_star", "count_if")
+                    else torch.zeros(128, dtype=torch.bool, device=device))
             cols.append(Column(vals, null))
         live = torch.zeros(128, dtype=torch.bool, device=device)
         live[0] = True
@@ -538,6 +588,9 @@ def _finalize_aggregate(node: Aggregate, acc: Optional[Batch], steps,
             hi = acc.column(a.symbol + "$hi")
             lo = acc.column(a.symbol + "$lo")
             cols.append(Column(lo.values, lo.validity, hi.values))
+        elif a.fn in ("bool_and", "bool_or"):
+            c = acc.column(a.symbol)
+            cols.append(Column(c.values.to(torch.bool), c.validity))
         else:
             cols.append(acc.column(a.symbol))
         names.append(a.symbol)
@@ -632,27 +685,57 @@ def _execute_join(node: HashJoin, ctx: ExecContext) -> Iterator[Batch]:
         raise NotImplementedError(
             "hash joins with a residual filter are not supported by "
             "presto_tpu_torch yet")
-    if node.kind != "inner":
+    if node.kind not in ("inner", "left", "full"):
         raise NotImplementedError(
             f"{node.kind} hash joins are not supported by presto_tpu_torch yet")
     probe_stream, chain = _fused_child(node.left, ctx)
     build_in = _collect_concat(execute_node(node.right, ctx))
-    if build_in is None:
+    if build_in is None and node.kind == "inner":
         return  # empty build side: an inner join has no output
     prober = _JoinProber(node, ctx, build_in, chain)
     for pb in probe_stream:
         yield from prober.probe_batch(pb)
+    yield from prober.tail()
+
+
+def _scatter_any(n: int, idx: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """bool[n]: whether any of `flags` landed on each index."""
+    hits = torch.zeros(n, dtype=torch.int32, device=flags.device)
+    hits.index_add_(0, idx.to(torch.int64), flags.to(torch.int32))
+    return hits > 0
+
+
+def _null_columns(b: Batch, syms, mask: Optional[torch.Tensor]) -> Batch:
+    """`b` with the columns `syms` NULL wherever `mask` is False (mask None:
+    everywhere)."""
+    cols = list(b.columns)
+    for i, name in enumerate(b.names):
+        if name in syms:
+            c = cols[i]
+            if mask is None:
+                valid = torch.zeros(b.capacity, dtype=torch.bool,
+                                    device=b.device)
+            else:
+                valid = c.valid_mask() & mask
+            cols[i] = Column(c.values, valid, c.hi)
+    return Batch(b.names, b.types, cols, b.live, b.dicts)
 
 
 class _JoinProber:
-    """One inner-join build table, probed batch by batch: `probe_batch`
-    yields the matches for one probe batch."""
+    """One build table, probed batch by batch: `probe_batch` yields the
+    matches for one probe batch, with a LEFT or FULL join's NULL-extended
+    probe rows; `tail` yields a FULL join's unmatched build rows."""
 
-    def __init__(self, node: HashJoin, ctx: ExecContext, build_in: Batch,
-                 chain, fanout_scan: int = 8):
+    def __init__(self, node: HashJoin, ctx: ExecContext,
+                 build_in: Optional[Batch], chain, fanout_scan: int = 8):
         self.node, self.ctx, self.chain = node, ctx, chain
         self.lsyms = [n for n, _ in node.left.output]
         self.rsyms = [n for n, _ in node.right.output]
+        if build_in is None:
+            # outer join over an empty build side: a table of dead rows
+            build_in = empty_batch(self.rsyms,
+                                   [t for _, t in node.right.output],
+                                   ctx.device)
         engine = _breaker_engine_choice(node, ctx)
         ltypes = dict(node.left.output)
         self.probe_dtypes = tuple(torch_dtype(ltypes[lk].dtype)
@@ -672,6 +755,10 @@ class _JoinProber:
                                          self.probe_dtypes)
         else:
             self.table = build_side(build_in, tuple(node.right_keys))
+        # FULL: how often each build row matched
+        self.bm = (torch.zeros(self.table.batch.capacity, dtype=torch.int32,
+                               device=ctx.device)
+                   if node.kind == "full" else None)
 
     def _counts(self, pba: Batch, fanout: int):
         node = self.node
@@ -682,8 +769,9 @@ class _JoinProber:
                             tuple(node.right_keys), max_fanout_scan=fanout)
 
     def _expand(self, pb, pba, lo, counts, offsets, base: int, out_cap: int):
-        """One output chunk; `lo` is the match matrix on the hash engine
-        and the range starts on the sort engine."""
+        """One output chunk, and for a LEFT or FULL join the probe rows it
+        matched (None for an inner join); `lo` is the match matrix on the
+        hash engine and the range starts on the sort engine."""
         node, t = self.node, self.table
         if self.engine == "hash":
             pr, bi, ol = hash_probe_expand(t, lo, counts, offsets, base,
@@ -692,7 +780,12 @@ class _JoinProber:
             pr, bi, ol = probe_expand(t, pba, tuple(node.left_keys),
                                       tuple(node.right_keys), lo, counts,
                                       offsets, base, out_cap)
-        return gather_join_output(pb, t, pr, bi, ol, self.lsyms, self.rsyms)
+        if self.bm is not None:
+            self.bm.index_add_(0, bi, ol.to(torch.int32))
+        out = gather_join_output(pb, t, pr, bi, ol, self.lsyms, self.rsyms)
+        if node.kind == "inner":
+            return out, None
+        return out, _scatter_any(pb.capacity, pr, ol)
 
     def probe_batch(self, pb_raw: Batch) -> Iterator[Batch]:
         node, table = self.node, self.table
@@ -710,7 +803,14 @@ class _JoinProber:
             rows = torch.arange(pb.capacity, device=pb.device)
             out = gather_join_output(pb, table, rows, idx, pb.live,
                                      self.lsyms, self.rsyms)
-            yield out.with_live(out.live & matched)
+            if self.bm is not None:
+                self.bm.index_add_(0, idx, (matched & pb.live).to(torch.int32))
+            if node.kind == "inner":
+                yield out.with_live(out.live & matched)
+            else:
+                # LEFT/FULL keep every probe row; unmatched ones get NULL
+                # build columns
+                yield _null_columns(out, self.rsyms, matched)
             return
 
         # general fanout join: counts pass + chunked expansion
@@ -732,15 +832,147 @@ class _JoinProber:
             ovn = ov_rows
         if ovn:
             self.ctx.bump("join.fanout_overflow_rows", ovn)
-        # output chunks of the probe batch's capacity
         out_cap = pb.capacity
         tot = int(total)
         base = 0
+        exists = None
         while True:
-            yield self._expand(pb, pba, lo, counts, offsets, base, out_cap)
+            out, hit = self._expand(pb, pba, lo, counts, offsets, base,
+                                    out_cap)
+            if hit is not None:
+                exists = hit if exists is None else (exists | hit)
+            yield out
             base += out_cap
             if base >= tot:
                 break
+        if node.kind in ("left", "full"):
+            # the probe rows no chunk matched, with NULL build columns
+            rows = torch.arange(pb.capacity, device=pb.device)
+            out = gather_join_output(pb, table, rows, torch.zeros_like(rows),
+                                     pb.live & ~exists, self.lsyms,
+                                     self.rsyms)
+            yield _null_columns(out, self.rsyms, None)
+
+    def tail(self) -> Iterator[Batch]:
+        """FULL join: the build rows no probe row matched, with NULL probe
+        columns (NULL-key build rows included)."""
+        if self.bm is None:
+            return
+        t = self.table
+        cap = t.batch.capacity
+        ltypes = dict(self.node.left.output)
+        names, types, cols = [], [], []
+        for c in self.lsyms:
+            names.append(c)
+            types.append(ltypes[c])
+            cols.append(Column(
+                torch.zeros(cap, dtype=torch_dtype(ltypes[c].dtype),
+                            device=self.ctx.device),
+                torch.zeros(cap, dtype=torch.bool, device=self.ctx.device)))
+        for c in self.rsyms:
+            names.append(c)
+            types.append(t.batch.type_of(c))
+            cols.append(t.batch.column(c))
+        yield Batch(names, types, cols, t.orig_live & (self.bm == 0),
+                    {c: t.batch.dicts[c] for c in self.rsyms
+                     if c in t.batch.dicts})
+
+
+# -- semi joins ---------------------------------------------------------------
+
+
+def _execute_semijoin(node: SemiJoin, ctx: ExecContext) -> Iterator[Batch]:
+    """Semi (EXISTS, IN) and anti (NOT EXISTS, NOT IN) joins: each probe
+    row is kept or dropped whole. Without a residual, the build side is a
+    table of its keys; with one (correlated EXISTS with non-equi conjuncts,
+    Q21), the probe expands to its candidate pairs chunk by chunk, the
+    residual filters them, and a probe row exists if any pair survives."""
+    right_in = _collect_concat(execute_node(node.right, ctx))
+    probe_stream, chain = _fused_child(node.left, ctx)
+    lkeys, rkeys = tuple(node.left_keys), tuple(node.right_keys)
+    if right_in is None:
+        # empty build side: semi keeps no row, anti keeps every row
+        for pb in probe_stream:
+            b = chain(pb)
+            yield b if node.negated else b.with_live(torch.zeros_like(b.live))
+        return
+
+    if node.residual is None:
+        engine = _breaker_engine_choice(node, ctx)
+        ltypes = dict(node.left.output)
+        probe_dtypes = tuple(torch_dtype(ltypes[lk].dtype) for lk in lkeys)
+        cdt = _join_plan_cdt(node)
+        if engine == "hash" and join_compare_dtypes(
+                right_in, rkeys, probe_dtypes) != cdt:
+            engine = "sort"
+            node.__dict__["_breaker_engine"] = "sort"
+            node.__dict__["_breaker_engine_why"] = (
+                "build batch dtypes deviate from plan types")
+        if engine == "hash":
+            # the linear-probing table keeps duplicate build keys (a probe
+            # walks the whole chain and only asks whether it matched)
+            table = hash_build_side(right_in, rkeys, probe_dtypes)
+        else:
+            # the sort engine's unique probe needs distinct build keys
+            cols = [right_in.column(r) for r in rkeys]
+            keys, _, out_live, _ = grouped_merge(
+                [KeyCol(c.values, c.validity) for c in cols], [],
+                right_in.live, right_in.capacity)
+            table = build_side(
+                Batch(list(rkeys), [right_in.type_of(r) for r in rkeys],
+                      [Column(k.values, k.validity) for k in keys], out_live,
+                      right_in.dicts), rkeys)
+        for pb in probe_stream:
+            b = chain(pb)
+            ba = align_probe_strings(b, lkeys, table, rkeys)
+            if engine == "hash":
+                _, matched = hash_probe_unique(table, ba, lkeys, cdt)
+            else:
+                _, matched = probe_unique(table, ba, lkeys, rkeys)
+            if not node.negated:
+                keep = matched
+            elif node.null_aware:
+                # NOT IN: a NULL probe key is NULL against a non-empty set,
+                # so the row drops. (As in the JAX package, a NULL inside
+                # the subquery does not drop every row.)
+                key_valid = torch.ones_like(b.live)
+                for lk in lkeys:
+                    kv = b.column(lk).validity
+                    if kv is not None:
+                        key_valid = key_valid & kv
+                keep = ~matched & (key_valid | (table.n_rows == 0))
+            else:
+                # NOT EXISTS: a NULL key never matches, so the row stays
+                keep = ~matched
+            yield b.with_live(b.live & keep)
+        return
+
+    lsyms = [n for n, _ in node.left.output]
+    rsyms = [n for n, _ in node.right.output]
+    pred = compile_predicate(node.residual)
+    node.__dict__["_breaker_engine"] = "sort"
+    node.__dict__["_breaker_engine_why"] = "residual semijoin"
+    table = build_side(right_in, rkeys)
+    for pb_raw in probe_stream:
+        pb = chain(pb_raw)
+        pba = align_probe_strings(pb, lkeys, table, rkeys)
+        lo, counts, offsets, total, _, _ = probe_counts(table, pba, lkeys,
+                                                        rkeys)
+        out_cap = pb.capacity
+        tot = int(total)
+        exists = torch.zeros_like(pb.live)
+        base = 0
+        while True:
+            pr, bi, ol = probe_expand(table, pba, lkeys, rkeys, lo, counts,
+                                      offsets, base, out_cap)
+            pair = gather_join_output(pb, table, pr, bi, ol, lsyms, rsyms)
+            exists = exists | _scatter_any(pb.capacity, pr,
+                                           pred(pair) & pair.live)
+            base += out_cap
+            if base >= tot:
+                break
+        keep = ~exists if node.negated else exists
+        yield pb.with_live(pb.live & keep)
 
 
 # -- sort -----------------------------------------------------------------------
@@ -795,11 +1027,36 @@ def _execute_sort(node: Sort, ctx: ExecContext) -> Iterator[Batch]:
 # plan entry
 
 
+def bind_scalar_subqueries(qp: QueryPlan, ctx: ExecContext) -> None:
+    """Run each uncorrelated scalar subquery of the plan and bind its value
+    into the plan as a raw Constant. A subquery must give exactly one row
+    (a global aggregate always does; over no input its value is NULL)."""
+    if not qp.scalar_subqueries:
+        return
+    bindings = {}
+    for sym, sub in qp.scalar_subqueries.items():
+        sub_out = run_plan(sub, ctx)
+        vals = sub_out.to_pydict(decode_strings=False)[sub_out.names[0]]
+        if len(vals) != 1:
+            raise RuntimeError(f"scalar subquery returned {len(vals)} rows")
+        bindings[sym] = Constant(sub_out.types[0], vals[0], raw=True)
+    _bind_plan_params(qp.root, bindings)
+
+
+def _bind_plan_params(node: PlanNode, bindings) -> None:
+    if isinstance(node, Filter):
+        node.predicate = substitute_params(node.predicate, bindings)
+    elif isinstance(node, Project):
+        node.exprs = [(s, substitute_params(e, bindings)) for s, e in node.exprs]
+    elif isinstance(node, HashJoin) and node.residual is not None:
+        node.residual = substitute_params(node.residual, bindings)
+    for c in node.children():
+        _bind_plan_params(c, bindings)
+
+
 def run_plan(qp: QueryPlan, ctx: ExecContext) -> Batch:
     """Execute a QueryPlan to one compacted Batch on the context's device."""
-    if qp.scalar_subqueries:
-        raise NotImplementedError(
-            "scalar subqueries are not supported by presto_tpu_torch yet")
+    bind_scalar_subqueries(qp, ctx)
     out_node = qp.root
     merged = _collect_concat(execute_node(out_node.child, ctx))
     if merged is None:
@@ -812,7 +1069,7 @@ def run_plan(qp: QueryPlan, ctx: ExecContext) -> Batch:
 
 def mark_breaker_engines(root: PlanNode, ctx: ExecContext) -> None:
     """Stamp each breaker's engine verdict on the plan (for EXPLAIN)."""
-    if isinstance(root, (Aggregate, HashJoin)):
+    if isinstance(root, (Aggregate, HashJoin, SemiJoin)):
         _breaker_engine_choice(root, ctx)
     for c in root.children():
         mark_breaker_engines(c, ctx)

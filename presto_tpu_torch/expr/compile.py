@@ -9,14 +9,23 @@ consulted (dead lanes compute harmlessly).
 Strings are dictionary codes: literals resolve against the column's
 Dictionary on the host, so string equality and IN become integer compares.
 
-This slice lowers what TPC-H Q1, Q3 and Q6 need: comparisons (numeric and
-date; string equality against a literal), BETWEEN, IN, AND/OR/NOT, CAST
-among numeric, decimal and date, and exact decimal arithmetic. Any other
-function raises NotImplementedError naming it.
+String functions work on the dictionary, not on the rows: LIKE is a
+boolean table over the dictionary's entries, and substr maps each entry to
+its substring (a new, canonical dictionary plus a code remap), so the
+device does one gather either way.
+
+Lowered: comparisons (numeric and date; string equality against a
+literal), BETWEEN, IN, AND/OR/NOT, IS [NOT] NULL, COALESCE, NULLIF, IF
+(CASE), LIKE with its escape, substr, year/month/day, CAST among numeric,
+decimal and date, and exact decimal arithmetic: what the 22 TPC-H queries
+use. Any other function raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
+import re
+
+import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch
@@ -55,6 +64,95 @@ def _div_half_away(v: torch.Tensor, f: int) -> torch.Tensor:
     return torch.sign(v) * torch.div(av + f // 2, f, rounding_mode="floor")
 
 
+def like_to_regex(pattern: str, escape: str | None = None) -> str:
+    """SQL LIKE pattern → anchored python regex."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if escape and c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return "^" + "".join(out) + "$"
+
+
+# string→string functions evaluated over the dictionary on the host
+_STR_TO_STR = {"substr"}
+
+
+def _sql_substr(s: str, start: int, length: int | None) -> str:
+    """SQL substr: 1-based; a negative start counts from the end."""
+    n = len(s)
+    if start == 0:
+        return ""
+    if start > 0:
+        i = start - 1
+    else:
+        i = n + start
+        if i < 0:
+            return ""
+    if i >= n:
+        return ""
+    if length is None:
+        return s[i:]
+    if length <= 0:
+        return ""
+    return s[i : i + length]
+
+
+def _str_xform_pyfn(fn: str, cargs: tuple):
+    """Host python fn(str) -> str for a string transform with constant
+    arguments."""
+    if fn == "substr":
+        start = int(cargs[0])
+        length = (int(cargs[1]) if len(cargs) > 1 and cargs[1] is not None
+                  else None)
+        return lambda s: _sql_substr(s, start, length)
+    raise NotImplementedError(
+        f"function {fn} is not supported by presto_tpu_torch yet")
+
+
+def _xform_parts(e: Call):
+    """Split a string-function call into (string operand, constant args)."""
+    consts = []
+    for a in e.args[1:]:
+        if not isinstance(a, Constant):
+            raise NotImplementedError(
+                f"{e.fn}: non-constant argument {a} not supported "
+                "(dictionary transforms need plan-time constants)")
+        consts.append(a.value)
+    return e.args[0], tuple(consts)
+
+
+def _civil_from_days(z: torch.Tensor):
+    """Days since the epoch → (year, month, day): Howard Hinnant's
+    algorithm in integer arithmetic (floor division throughout)."""
+    z = z.to(torch.int64) + 719468
+    era = torch.div(torch.where(z >= 0, z, z - 146096), 146097,
+                    rounding_mode="floor")
+    doe = z - era * 146097
+    yoe = torch.div(doe - torch.div(doe, 1460, rounding_mode="floor")
+                    + torch.div(doe, 36524, rounding_mode="floor")
+                    - torch.div(doe, 146096, rounding_mode="floor"),
+                    365, rounding_mode="floor")
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + torch.div(yoe, 4, rounding_mode="floor")
+                 - torch.div(yoe, 100, rounding_mode="floor"))
+    mp = torch.div(5 * doy + 2, 153, rounding_mode="floor")
+    d = doy - torch.div(153 * mp + 2, 5, rounding_mode="floor") + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
 def unscale(v: torch.Tensor, scale: int) -> torch.Tensor:
     """A decimal's unscaled value as its SQL value: multiplication by the
     reciprocal of 10^scale. XLA compiles the JAX package's division by
@@ -65,10 +163,12 @@ def unscale(v: torch.Tensor, scale: int) -> torch.Tensor:
 
 class CompileContext:
     """What evaluation needs beyond the IR: the batch (its dictionaries and
-    device)."""
+    device), and `out_dict`, the dictionary of the string literals an
+    expression yields as values (CASE ... THEN 'x')."""
 
-    def __init__(self, batch: Batch):
+    def __init__(self, batch: Batch, out_dict: Dictionary | None = None):
         self.batch = batch
+        self.out_dict = out_dict
 
     @property
     def device(self) -> torch.device:
@@ -82,31 +182,77 @@ class CompileContext:
         if isinstance(e, InputRef):
             return self.batch.dict_of(e.name)
         if isinstance(e, Call):
+            if e.fn in _STR_TO_STR:
+                return self.transformed(e)[0]
             for a in e.args:
                 d = self.dict_for(a)
                 if d is not None:
                     return d
         return None
 
+    def transformed(self, e: Call):
+        """(new dictionary, code remap, operand) of a string transform,
+        memoized on the operand's dictionary."""
+        operand, cargs = _xform_parts(e)
+        d = self.dict_for(operand)
+        if d is None:
+            raise ValueError(f"string function {e.fn} needs a dictionary "
+                             "operand")
+        nd, remap = d.transform((e.fn, cargs), _str_xform_pyfn(e.fn, cargs))
+        return nd, remap, operand
+
+
+def string_output_dictionary(e: RowExpression) -> Dictionary | None:
+    """The dictionary of the string literals an expression yields as values
+    (CASE tags, COALESCE defaults), built at plan time; None if there are
+    none. Literals in comparison, LIKE or IN positions resolve against the
+    column's dictionary instead."""
+    if isinstance(e, InputRef):
+        return None
+    consts: list[str] = []
+
+    def walk(x, value_pos: bool):
+        if (isinstance(x, Constant) and x.type.is_string and value_pos
+                and x.value is not None):
+            consts.append(str(x.value))
+        if isinstance(x, Call):
+            in_value_pos = x.fn in ("if", "coalesce", "nullif") or (
+                value_pos and x.fn == "cast")
+            for a in x.args:
+                walk(a, in_value_pos and a.type.is_string)
+
+    walk(e, True)
+    if not consts:
+        return None
+    from presto_tpu_torch.dictionary import safe_str_array
+
+    return Dictionary(np.unique(safe_str_array(
+        np.asarray(consts, dtype=object))))
+
 
 def compile_expr(e: RowExpression):
-    """Return fn(batch) -> (values, validity|None)."""
-    if e.type.is_string and not isinstance(e, InputRef):
-        raise NotImplementedError(
-            "string-valued expressions are not supported by "
-            "presto_tpu_torch yet")
+    """Return fn(batch) -> (values, validity|None). A string-valued
+    expression also gets `fn.dyn_dict(batch)`, its output dictionary."""
+    out_dict = string_output_dictionary(e)
 
     def fn(batch: Batch):
-        return _eval(e, CompileContext(batch))
+        return _eval(e, CompileContext(batch, out_dict))
 
+    if e.type.is_string and not isinstance(e, InputRef):
+        def dyn_dict(batch: Batch):
+            d = CompileContext(batch, out_dict).dict_for(e)
+            return d if d is not None else out_dict
+
+        fn.dyn_dict = dyn_dict
     return fn
 
 
 def compile_predicate(e: RowExpression):
     """Return fn(batch) -> bool mask (NULL → False, like Presto filters)."""
+    out_dict = string_output_dictionary(e)
 
     def fn(batch: Batch):
-        v, valid = _eval(e, CompileContext(batch))
+        v, valid = _eval(e, CompileContext(batch, out_dict))
         mask = v.to(torch.bool)
         if valid is not None:
             mask = mask & valid
@@ -146,6 +292,8 @@ def _eval_constant(e: Constant, ctx: CompileContext,
         return ctx.const(e.value, e.type), None
     if e.type.is_string:
         d = ctx.dict_for(sibling) if sibling is not None else None
+        if d is None:
+            d = ctx.out_dict
         if d is None:
             raise ValueError("string constant without dictionary context")
         return torch.tensor(d.code_of(str(e.value)), dtype=torch.int32,
@@ -226,6 +374,58 @@ def _eval_call(e: Call, ctx: CompileContext):
         v, valid = _eval_arg(e.args[0], ctx)
         return ~v.to(torch.bool), valid
 
+    # ---- null handling ---------------------------------------------------
+    if fn == "is_null":
+        v, valid = _eval_arg(e.args[0], ctx)
+        if valid is None:
+            return torch.zeros(v.shape, dtype=torch.bool, device=ctx.device), None
+        return ~valid, None
+    if fn == "is_not_null":
+        v, valid = _eval_arg(e.args[0], ctx)
+        if valid is None:
+            return torch.ones(v.shape, dtype=torch.bool, device=ctx.device), None
+        return valid, None
+    if fn == "coalesce":
+        dt = torch_dtype(e.type.dtype)
+        out_v, out_valid = _eval_arg(e.args[0], ctx)
+        out_v = out_v.to(dt)
+        for a in e.args[1:]:
+            if out_valid is None:
+                break
+            av, avalid = _eval_arg(a, ctx)
+            out_v = torch.where(out_valid, out_v, av.to(dt))
+            if avalid is None:
+                return out_v, None  # fully covered
+            out_valid = out_valid | avalid
+        return out_v, out_valid
+    if fn == "nullif":
+        av, avalid = _eval_arg(e.args[0], ctx, e.args[1])
+        bv, bvalid = _eval_arg(e.args[1], ctx, e.args[0])
+        eq = av == bv
+        if bvalid is not None:
+            eq = eq & bvalid
+        valid = (avalid if avalid is not None
+                 else torch.ones(av.shape, dtype=torch.bool, device=ctx.device))
+        return av, valid & ~eq
+
+    # ---- control flow ----------------------------------------------------
+    if fn == "if":
+        cond, then, els = e.args
+        cv, cvalid = _eval_arg(cond, ctx)
+        cmask = cv.to(torch.bool)
+        if cvalid is not None:
+            cmask = cmask & cvalid
+        dt = torch_dtype(e.type.dtype)
+        tv, tvalid = _eval_arg(then, ctx, els)
+        ev, evalid = _eval_arg(els, ctx, then)
+        out = torch.where(cmask, tv.to(dt), ev.to(dt))
+        if tvalid is None and evalid is None:
+            return out, None
+        ones = torch.ones(out.shape, dtype=torch.bool, device=ctx.device)
+        tva = tvalid if tvalid is not None else ones
+        eva = evalid if evalid is not None else ones
+        return out, torch.where(cmask, tva, eva)
+
     # ---- membership ------------------------------------------------------
     if fn == "in":
         val = e.args[0]
@@ -245,6 +445,36 @@ def _eval_call(e: Call, ctx: CompileContext):
         ge = _eval_call(Call(BOOLEAN, "ge", (v, lo)), ctx)
         le = _eval_call(Call(BOOLEAN, "le", (v, hi)), ctx)
         return ge[0] & le[0], _and_valid(ge[1], le[1])
+
+    # ---- LIKE over the dictionary ---------------------------------------
+    if fn == "like":
+        val, pat = e.args[0], e.args[1]
+        escape = str(e.args[2].value) if len(e.args) > 2 else None
+        d = ctx.dict_for(val)
+        if d is None:
+            raise ValueError("LIKE on non-dictionary column")
+        rx = re.compile(like_to_regex(str(pat.value), escape))
+        table = d.int_lut(("like", pat.value, escape),
+                          lambda s: rx.match(s) is not None, dtype=np.bool_)
+        vv, vvalid = _eval(val, ctx)
+        return (torch.as_tensor(table, device=ctx.device)[vv.to(torch.int64) + 1],
+                vvalid)
+
+    # ---- string transforms over the dictionary ---------------------------
+    if fn in _STR_TO_STR:
+        _, remap, operand = ctx.transformed(e)
+        codes, valid = _eval(operand, ctx)
+        return (torch.as_tensor(remap, device=ctx.device)[
+            codes.to(torch.int64) + 1], valid)
+
+    # ---- dates -----------------------------------------------------------
+    if fn in ("year", "month", "day"):
+        v, valid = _eval_arg(e.args[0], ctx)
+        if e.args[0].type.name == "timestamp":
+            v = torch.div(v.to(torch.int64), 86_400_000_000,
+                          rounding_mode="floor")
+        y, m, d = _civil_from_days(v)
+        return {"year": y, "month": m, "day": d}[fn], valid
 
     if fn == "cast":
         return _eval_cast(e, ctx)
