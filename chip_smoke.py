@@ -32,8 +32,14 @@
    FRACTION = 0.0001 / SF). One more run of each query under hash records
    each kernel's largest input, which is launched again and held to its
    contract (grouped_sums against its plain version, the others by their
-   invariants). At SF 0.01 all 44 runs must give the same frame on the
-   card as on the CPU.
+   invariants). At SF 0.01 the 22 runs under hash must give the same
+   frame on the card as on the CPU.
+   Then TPC-DS (`phase_tpcds`): the 44 queries of
+   presto_tpu_torch/catalog/tpcds_queries.py at SF 1 under auto and hash
+   (engines agree; nine numpy/pandas oracles; every query returns rows;
+   each of the four kernels launches under hash; each kernel's largest
+   input held to its contract), INTERSECT ALL at SF 1 against its oracle,
+   and the 88 runs at SF 0.01 on the card against the CPU.
 4. Timing phase: each kernel on the largest inputs its launcher saw in
    the query phase, three CUDA-event times: the kernel alone (the bare
    C launch, its memsets included, on outputs allocated once, events
@@ -57,7 +63,9 @@
    join_probe's in the queries with a hash SemiJoin), timed the same way.
 
 Prints a `tpch22` JSON line (each query and engine: rows, warm median,
-first run, lineitem rows/s, launches, device time), a `kernels` JSON line
+first run, lineitem rows/s, launches, device time), a `tpcds` JSON line
+(the same with store_sales rows/s, and INTERSECT ALL's), a `kernels` JSON
+line (with each kernel's launches on the TPC-DS path under hash)
 (`ms` is the cold kernel-alone time where one was taken; `large` holds the
 large shapes, `ms` cold and `ms_warm`), the run's duration, then as its
 last line
@@ -922,6 +930,10 @@ ORDER_KEYS = {
     "q20": ["s_name"], "q21": ["numwait", "s_name"], "q22": ["cntrycode"],
 }
 ENGINES = ("auto", "hash")
+# the TPC-H SF 0.01 card-against-CPU reruns: hash only, since the TPC-DS
+# phase took the whole run past 400 s (its own 88 such runs cover both
+# engines)
+SMALL_TPCH_ENGINES = ("hash",)
 # the queries whose SemiJoins take the hash engine (no residual): their
 # join_insert builds keep duplicate keys (Q4's lineitem, Q22's orders)
 SEMI_HASH = ("q4", "q16", "q18", "q20", "q22")
@@ -981,8 +993,8 @@ def _nulls_as_none(col):
             for v in col]
 
 
-def columns_equal(got, want, label) -> None:
-    """Column by column: floats to rtol=1e-12 (the JAX package's tolerance
+def columns_equal(got, want, label, rtol=1e-12) -> None:
+    """Column by column: floats to rtol (1e-12: the JAX package's tolerance
     between its own engines), everything else exactly."""
     import numpy as np
 
@@ -996,7 +1008,7 @@ def columns_equal(got, want, label) -> None:
             ok = ([v is None for v in g] == [v is None for v in w]
                   and np.allclose([0.0 if v is None else v for v in g],
                                   [0.0 if v is None else v for v in w],
-                                  rtol=1e-12, atol=0.0))
+                                  rtol=rtol, atol=0.0))
         else:
             ok = g == w
         require(ok, f"{label}: column {c} differs: {g[:4]} vs {w[:4]}")
@@ -1014,14 +1026,16 @@ def _as_multiset(df):
                   ].reset_index(drop=True)
 
 
-def frames_agree(got, want, keys, label) -> str:
+def frames_agree(got, want, keys, label, rtol=1e-12) -> str:
     """Identical frames, or (where the ORDER BY ties) the ordering columns
     row for row and the rows as a multiset. Returns which held."""
     if got.equals(want):
         return "identical"
     if keys:
-        columns_equal(got[keys], want[keys], f"{label} (ordering columns)")
-    columns_equal(_as_multiset(got), _as_multiset(want), f"{label} (rows)")
+        columns_equal(got[keys], want[keys], f"{label} (ordering columns)",
+                      rtol)
+    columns_equal(_as_multiset(got), _as_multiset(want), f"{label} (rows)",
+                  rtol)
     return "equal up to ties" if keys else "equal"
 
 
@@ -1166,7 +1180,8 @@ def phase_tpch22(torch, cat, errs):
     it, the port's kernels' part, and the three largest entries. One more
     run under hash records each kernel's largest input, which
     `check_recorded` holds to its contract. At SF 0.01 every query under
-    both engines must give the same frame on the card as on the CPU.
+    hash (SMALL_TPCH_ENGINES) must give the same frame on the card as on
+    the CPU.
     Returns name -> [(label, arguments)]: the inputs the timing phase
     times, per kernel the largest of the 22 queries and, for join_insert
     and join_probe, those of the SEMI_HASH queries."""
@@ -1246,15 +1261,16 @@ def phase_tpch22(torch, cat, errs):
     small = tpch_catalog(SMALL_SF)
     hows = {}
     for q, sql in TPCH.items():
-        for eng in ENGINES:
+        for eng in SMALL_TPCH_ENGINES:
             cfg = ExecConfig(breaker_engine=eng)
             on_gpu = LocalRunner(small, cfg).run(sql)
             on_cpu = LocalRunner(small, cfg, device="cpu").run(sql)
             hows[f"{q} {eng}"] = frames_agree(
                 on_gpu, on_cpu, ORDER_KEYS[q],
                 f"{q} {eng} SF {SMALL_SF} card vs CPU")
-    print(f"tpch22 SF {SMALL_SF}: card against CPU for 44 runs: "
+    print(f"tpch22 SF {SMALL_SF}: card against CPU for {len(hows)} runs: "
           f"{json.dumps(hows)}")
+    print(f"tpch22: phase took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"tpch22": summary}))
     timed = {}
     for name, (_, q, args) in largest.items():
@@ -1262,6 +1278,364 @@ def phase_tpch22(torch, cat, errs):
         timed[name] += [(f"{sq} hash SF {SF} (hash SemiJoin), its largest",
                          a) for sq, a in semi.get(name, []) if sq != q]
     return timed
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: TPC-DS
+
+# the output columns of each TPC-DS query's ORDER BY (None: one row, or an
+# ORDER BY on an expression)
+DS_ORDER_KEYS = {
+    "q1_returns_above_store_avg": ["ctr_customer_sk", "ctr_store_sk"],
+    "q13_demographic_averages": None, "q15_catalog_by_zip": ["ca_zip"],
+    "q19_brand_by_manufact": ["s", "i_brand_id"],
+    "q21_inventory_before_after": ["w_warehouse_name", "i_item_id"],
+    "q25_store_catalog_chain": ["i_item_id", "s_store_id"],
+    "q26_catalog_demographics": ["i_item_id"],
+    "q33_cross_channel_by_manufact": ["total_sales", "i_manufact_id"],
+    "q37_item_inventory_window": ["i_item_id"],
+    "q43_store_by_dow": ["s_store_name", "s_store_id"],
+    "q46_tickets_by_city": ["ss_ticket_number"],
+    "q48_or_banded_quantity": None,
+    "q52_brand_by_eom": ["d_year", "ext_price", "i_brand_id"],
+    "q55_brand_for_manager": ["ext_price", "i_brand_id"],
+    "q62_web_ship_buckets": ["w_warehouse_name", "sm_type", "web_name"],
+    "q65_store_item_vs_avg": ["s_store_name", "i_item_id"],
+    "q73_ticket_counts": ["cnt", "c_customer_sk"],
+    "q88_hour_buckets": None, "q92_web_above_item_avg": None,
+    "q96_hour_window_count": None,
+    "q99_catalog_ship_buckets": ["w_warehouse_name", "sm_type", "cc_name"],
+    "q3_shape_brand_by_year": ["d_year", "s", "i_brand_id"],
+    "q7_shape_demographics_filter": ["i_item_id"],
+    "q42_shape_category_by_year": ["s", "d_year", "i_category_id",
+                                   "i_category"],
+    "cross_channel_union": ["i_brand_id"],
+    "q22_shape_inventory_rollup": ["qoh", "i_product_name"],
+    "web_channel_site_rollup": ["web_name"],
+    "ds_q98_window_ratio": ["i_category", "i_size", "i_item_id",
+                            "revenueratio"],
+    "ds_q89_window_avg": None, "ds_q47_rank_selfjoin": None,
+    "ds_q51_rows_running_sum": ["item_sk", "d_date"],
+    "ds_lag_lead": ["ss_item_sk", "d_moy"],
+    "ds_q44_global_rank": ["rnk", "item_sk"],
+    "ds_q86_rollup": ["lochierarchy", "i_category", "i_size"],
+    "ds_q86_rollup_rank": ["lochierarchy", "r", "i_category", "i_size"],
+    "ds_q38_intersect": None, "ds_q87_except": None,
+    "ds_union_distinct": None, "ds_q28_cross_distinct": None,
+    "ds_nonequi_nljoin": None, "ds_q17_stddev": ["i_item_id", "s_state"],
+    "ds_maxby_percentile": ["i_category"], "ds_date_functions": ["m"],
+    "ds_round_sqrt": ["i_category"],
+}
+# Float columns on the card against the CPU and engine against engine:
+# float sums and averages reduce with atomics (index_add_) and parallel
+# scans on the card, in another order than on the CPU or the other engine,
+# and a variance subtracts two such sums; 1e-9 covers that rounding
+# (relative error up to about n * 2^-53 for n rows a group, times the
+# cancellation) with room, where TPC-H's float columns (quotients of exact
+# integer sums) hold to 1e-12.
+DS_RTOL = 1e-9
+# max_by over a hash join: the card's probe order is not deterministic, so
+# a group's tied maxima may give another row; the oracle holds the key
+DS_TIES = {"ds_maxby_percentile": "top_item"}
+
+
+def ds_agree(got, want, q, label, ties=None) -> str:
+    """frames_agree at DS_RTOL, where `ties` names a column that may hold
+    another of a group's tied rows (checked against the oracle apart)."""
+    if ties is not None:
+        got, want = got.drop(columns=[ties]), want.drop(columns=[ties])
+    return frames_agree(got, want, DS_ORDER_KEYS[q], label, DS_RTOL)
+
+
+def ds_oracles(conn):
+    """Nine of the TPC-DS queries from the tables' arrays with numpy and
+    pandas: INTERSECT, EXCEPT and UNION as set operations on pairs, lag/
+    lead as a groupby shift, the ROWS running sum as a groupby cumsum, the
+    global rank as rank(method="min"), the rollup as three groupbys
+    concatenated, the cross join of three aggregates with masks and
+    nunique, the non-equi join as a broadcast compare. Decimals on their
+    unscaled integers."""
+    import numpy as np
+    import pandas as pd
+    from decimal import Decimal
+
+    def table(name):
+        conn.get_table(name)
+        return conn.tables[name]
+
+    def dec(v):
+        return Decimal(int(v)).scaleb(-2)
+
+    dd, it = table("date_dim").arrays, table("item")
+    ss, cs = table("store_sales").arrays, table("catalog_sales").arrays
+    ws = table("web_sales").arrays
+    items = pd.DataFrame({"item": it.arrays["i_item_sk"],
+                          "brand": it.arrays["i_brand"],
+                          "cat": it.arrays["i_category"],
+                          "size": it.arrays["i_size"]})
+
+    def dates(mask):
+        return pd.DataFrame({"date": dd["d_date_sk"][mask],
+                             "moy": dd["d_moy"][mask],
+                             "d_date": dd["d_date"][mask]})
+
+    y2000 = dd["d_year"] == 2000
+
+    def brand_moy(fact, date_col, item_col, mask):
+        f = pd.DataFrame({"date": fact[date_col], "item": fact[item_col]})
+        m = f.merge(dates(mask), on="date").merge(items, on="item")
+        return set(zip(m["brand"], m["moy"]))
+
+    out = {}
+    sales = brand_moy(ss, "ss_sold_date_sk", "ss_item_sk", y2000)
+    out["ds_q38_intersect"] = pd.DataFrame({"n": [len(
+        sales & brand_moy(cs, "cs_sold_date_sk", "cs_item_sk", y2000))]})
+    out["ds_q87_except"] = pd.DataFrame({"n": [len(sales - brand_moy(
+        cs, "cs_sold_date_sk", "cs_item_sk", y2000 & (dd["d_dom"] < 3)))]})
+    out["ds_union_distinct"] = pd.DataFrame({"n": [len(np.union1d(
+        ss["ss_item_sk"], cs["cs_item_sk"]))]})
+
+    f = pd.DataFrame({"date": ss["ss_sold_date_sk"], "item": ss["ss_item_sk"],
+                      "qty": ss["ss_quantity"], "price": ss["ss_sales_price"]})
+    f = f.merge(dates(y2000), on="date")
+    g = (f[f["item"] < 50].groupby(["item", "moy"])["qty"].sum()
+         .reset_index().sort_values(["item", "moy"], ignore_index=True))
+    by = g.groupby("item")["qty"]
+
+    def shifted(k):
+        return [None if v != v else int(v) for v in by.shift(k)]
+
+    out["ds_lag_lead"] = pd.DataFrame({
+        "ss_item_sk": g["item"], "d_moy": g["moy"], "s": g["qty"],
+        "p": shifted(1), "nx": shifted(-1)})
+    g = (f[f["item"] < 200].groupby(["item", "d_date"])["price"].sum()
+         .reset_index().sort_values(["item", "d_date"], ignore_index=True))
+    g["cume"] = g.groupby("item")["price"].cumsum()
+    g = g.head(100)
+    out["ds_q51_rows_running_sum"] = pd.DataFrame({
+        "item_sk": g["item"], "d_date": g["d_date"],
+        "cume_sales": [dec(v) for v in g["cume"]]})
+
+    st4 = ss["ss_store_sk"] == 4
+    g = pd.DataFrame({"item": ss["ss_item_sk"][st4],
+                      "p": ss["ss_net_profit"][st4]}).groupby("item")["p"]
+    avg = g.sum().astype(np.float64) * (1.0 / 100.0) / g.size()
+    r = avg.rank(method="min", ascending=False).astype(np.int64)
+    g = pd.DataFrame({"item_sk": avg.index, "rank_col": avg.to_numpy(),
+                      "rnk": r.to_numpy()})
+    out["ds_q44_global_rank"] = g[g["rnk"] < 11].sort_values(
+        ["rnk", "item_sk"], ignore_index=True)
+
+    w = pd.DataFrame({"date": ws["ws_sold_date_sk"], "item": ws["ws_item_sk"],
+                      "paid": ws["ws_net_paid"]})
+    w = w.merge(dates(y2000), on="date").merge(items, on="item")
+    cat_d, size_d = it.dicts["i_category"], it.dicts["i_size"]
+    rows = [(int(w["paid"].sum()), None, None, 2)]
+    for c, v in w.groupby("cat")["paid"].sum().items():
+        rows.append((int(v), str(cat_d.values[c]), None, 1))
+    for (c, z), v in w.groupby(["cat", "size"])["paid"].sum().items():
+        rows.append((int(v), str(cat_d.values[c]), str(size_d.values[z]), 0))
+    rows.sort(key=lambda t: (-t[3], t[1] is None, t[1] or "", t[2] is None,
+                             t[2] or ""))
+    rows = rows[:100]
+    out["ds_q86_rollup"] = pd.DataFrame({
+        "total_sum": [dec(t[0]) for t in rows],
+        "i_category": [t[1] for t in rows], "i_size": [t[2] for t in rows],
+        "lochierarchy": [t[3] for t in rows]})
+
+    qty, lp, wc = ss["ss_quantity"], ss["ss_list_price"], ss["ss_wholesale_cost"]
+    row = {}
+    for b, (q0, q1, l0, l1, w0, w1) in enumerate(
+            [(0, 5, 8, 18, 57, 77), (6, 10, 90, 100, 31, 51),
+             (11, 15, 142, 152, 79, 99)], start=1):
+        m = ((qty >= q0) & (qty <= q1)
+             & (((lp >= l0 * 100) & (lp <= l1 * 100))
+                | ((wc >= w0 * 100) & (wc <= w1 * 100))))
+        v = lp[m]
+        row[f"b{b}_lp"] = [float(v.sum()) * (1.0 / 100.0) / len(v)]
+        row[f"b{b}_cnt"] = [len(v)]
+        row[f"b{b}_cntd"] = [len(np.unique(v))]
+    out["ds_q28_cross_distinct"] = pd.DataFrame(row)
+
+    emp = table("store").arrays["s_number_employees"]
+    man = it.arrays["i_manufact_id"]
+    out["ds_nonequi_nljoin"] = pd.DataFrame({"n": [int(
+        ((emp[:, None] >= man[None, :]) & (emp[:, None] <= man[None, :] + 1))
+        .sum())]})
+    return out
+
+
+def ds_max_ties(conn):
+    """i_category -> the i_item_ids of the store sales at that category's
+    highest ss_sales_price: the rows max_by may take."""
+    import pandas as pd
+
+    it = conn.tables["item"]
+    ss = conn.tables["store_sales"].arrays
+    f = pd.DataFrame({"item": ss["ss_item_sk"], "price": ss["ss_sales_price"]})
+    f = f.merge(pd.DataFrame({"item": it.arrays["i_item_sk"],
+                              "cat": it.arrays["i_category"],
+                              "id": it.arrays["i_item_id"]}), on="item")
+    top = f[f["price"] == f.groupby("cat")["price"].transform("max")]
+    cat_d, id_d = it.dicts["i_category"], it.dicts["i_item_id"]
+    return {str(cat_d.values[c]): {str(id_d.values[i]) for i in g["id"]}
+            for c, g in top.groupby("cat")}
+
+
+def check_ties(got, ties, label) -> None:
+    for c, top in zip(got["i_category"], got["top_item"]):
+        require(top in ties.get(c, ()), f"{label}: max_by gave {top} for "
+                f"{c}, not one of its top-priced items")
+
+
+def ds_intersect_all(torch, runner, conn):
+    """INTERSECT ALL at SF 1, whose count runs on the host (as the JAX
+    package's does): against a Counter-style oracle, and timed."""
+    import numpy as np
+
+    sql = ("select ss_item_sk k from store_sales where ss_quantity < 10 "
+           "intersect all select cs_item_sk from catalog_sales "
+           "where cs_quantity < 10")
+    ss = conn.tables["store_sales"].arrays
+    cs = conn.tables["catalog_sales"].arrays
+    a = np.bincount(ss["ss_item_sk"][ss["ss_quantity"] < 10])
+    b = np.bincount(cs["cs_item_sk"][cs["cs_quantity"] < 10])
+    n = min(len(a), len(b))
+    want = np.repeat(np.arange(n), np.minimum(a[:n], b[:n]))
+    out, sec = timed_runs(torch, runner, sql)
+    got = np.sort(out["k"].to_numpy().astype(np.int64))
+    require(np.array_equal(got, want), "INTERSECT ALL at SF 1 differs from "
+            "its oracle")
+    dev = device_profile(torch, lambda: runner.run(sql))
+    print(f"tpcds intersect_all SF {SF}: {len(got)} rows equal to the oracle; "
+          f"warm median of 3 {sec * 1e3:.1f} ms (the row count on the host), "
+          f"device time {dev['device_ms']:.2f} ms")
+    return {"rows": len(got), "warm_ms": sec * 1e3, **dev}
+
+
+def phase_tpcds(torch, errs):
+    """TPC-DS at SF 1 on the card: all 44 queries of
+    presto_tpu_torch/catalog/tpcds_queries.py under breaker_engine auto and
+    hash. Each returns rows; the engines agree (`ds_agree`); nine equal
+    numpy/pandas oracles (`ds_oracles`) and ds_maxby_percentile's max_by
+    takes one of its category's tied rows. Per query and engine: launches
+    of the first run (counts reset just before it, read just after), the
+    warm median of 3, store_sales rows/s, and the device time of one more
+    run (torch.profiler). Under hash each of the four kernels must launch
+    somewhere on this path. One more hash run a query records each
+    kernel's largest input, held to its contract by `check_recorded`. At
+    SF 0.01 all 88 runs give the same frame on the card as on the CPU.
+    Returns (launches under hash by kernel, summary, name -> [(label,
+    arguments)] for the timing phase: each kernel's largest TPC-DS
+    input)."""
+    from presto_tpu_torch.catalog.tpcds import tpcds_catalog
+    from presto_tpu_torch.catalog.tpcds_queries import QUERIES as TPCDS
+    from presto_tpu_torch.exec import ExecConfig, LocalRunner
+    from presto_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    cat = tpcds_catalog(SF)
+    conn = cat.connectors["tpcds"]
+    for t in conn.table_names():
+        conn.get_table(t)
+    n_ss = conn.tables["store_sales"].num_rows
+    nbytes = sum(a.nbytes for t in conn.tables.values()
+                 for a in t.arrays.values())
+    oracles = ds_oracles(conn)
+    ties = ds_max_ties(conn)
+    print(f"tpcds: SF {SF} tables ({len(conn.tables)}, {nbytes} bytes of "
+          f"columns, {n_ss} store_sales rows) and oracles ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+    runners = {e: LocalRunner(cat, ExecConfig(breaker_engine=e))
+               for e in ENGINES}
+    summary = []
+    largest = {}
+    hash_launches = {}
+    for q, sql in TPCDS.items():
+        outs = {}
+        for eng in ENGINES:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = runners[eng].run(sql)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t1
+            launches = {k: v for k, v in launch_counts().items() if v}
+            if eng == "hash":
+                for k, v in launches.items():
+                    hash_launches[k] = hash_launches.get(k, 0) + v
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                again = runners[eng].run(sql)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t1)
+            require(len(out) > 0, f"{q} {eng} SF {SF}: no row")
+            ds_agree(again, out, q, f"{q} {eng} rerun", DS_TIES.get(q))
+            sec = statistics.median(ts)
+            dev = device_profile(torch, lambda: runners[eng].run(sql))
+            outs[eng] = out
+            if q in oracles:
+                ds_agree(out, oracles[q], q, f"{q} {eng} SF {SF} oracle")
+            if q in DS_TIES:
+                check_ties(out, ties, f"{q} {eng} SF {SF}")
+            summary.append({"query": q, "engine": eng, "rows": len(out),
+                            "warm_ms": sec * 1e3, "first_ms": first * 1e3,
+                            "store_sales_rows_per_s": n_ss / sec,
+                            "launches": launches, **dev})
+            print(f"tpcds {q} {eng} SF {SF}: {len(out)} rows; warm median of "
+                  f"3 {sec * 1e3:.1f} ms, {n_ss / sec:.4g} store_sales "
+                  f"rows/s; first run {first * 1e3:.1f} ms; launches "
+                  f"{json.dumps(launches)}; device time of one run "
+                  f"{dev['device_ms']:.2f} ms ({dev['device_ms'] / sec / 10:.1f}"
+                  f" % of the warm median), the port's kernels "
+                  f"{dev['port_kernels_ms']:.3f} ms; largest "
+                  f"{json.dumps(dev['top'])}"
+                  + ("; equal to the oracle" if q in oracles else "")
+                  + ("; max_by took a top-priced row" if q in DS_TIES
+                     else ""))
+        how = ds_agree(outs["hash"], outs["auto"], q,
+                       f"{q} SF {SF} hash vs auto", DS_TIES.get(q))
+        print(f"tpcds {q} SF {SF}: hash and auto {how}")
+        inputs = record_run(torch, lambda: runners["hash"].run(sql))
+        done = check_recorded(torch, inputs, errs)
+        print(f"tpcds {q} hash SF {SF}: each kernel's largest input holds its "
+              f"contract: {json.dumps(done)}")
+        for name, (size, args) in inputs.items():
+            if size > largest.get(name, (0, None, None))[0]:
+                largest[name] = (size, q, args)
+        del inputs
+    for name in REPLACES:
+        require(hash_launches.get(name, 0) > 0,
+                f"kernel {name} never launched on the TPC-DS path under hash")
+    print(f"tpcds: launches of the 44 first runs under hash: "
+          f"{json.dumps(hash_launches)}")
+    setop = ds_intersect_all(torch, runners["hash"], conn)
+    del runners, cat, conn
+
+    small = tpcds_catalog(SMALL_SF)
+    small_ties = None
+    hows = {}
+    for q, sql in TPCDS.items():
+        for eng in ENGINES:
+            cfg = ExecConfig(breaker_engine=eng)
+            on_gpu = LocalRunner(small, cfg).run(sql)
+            on_cpu = LocalRunner(small, cfg, device="cpu").run(sql)
+            if q in DS_TIES:
+                if small_ties is None:
+                    small_ties = ds_max_ties(small.connectors["tpcds"])
+                check_ties(on_gpu, small_ties, f"{q} {eng} SF {SMALL_SF}")
+            hows[f"{q} {eng}"] = ds_agree(
+                on_gpu, on_cpu, q, f"{q} {eng} SF {SMALL_SF} card vs CPU",
+                DS_TIES.get(q))
+    print(f"tpcds SF {SMALL_SF}: card against CPU for {len(hows)} runs: "
+          f"{json.dumps(hows)}")
+    print(json.dumps({"tpcds": summary, "intersect_all": setop}))
+    print(f"tpcds: phase took {time.perf_counter() - t0:.1f} s")
+    timed = {name: [(f"{q} hash SF {SF}, the largest of the TPC-DS queries",
+                     args)] for name, (_, q, args) in largest.items()}
+    return hash_launches, timed
 
 
 # ---------------------------------------------------------------------------
@@ -1663,10 +2037,10 @@ def print_large(name, r):
             f"{r['ms']:.5f} ms beats its byte bound")
 
 
-def time_tpch22(torch, flush, timed):
-    """Time each kernel on the 22-query inputs the query phase kept
-    (`phase_tpch22`; already held to their contracts there), cold and
-    warm, as time_large does."""
+def time_tpch22(torch, flush, timed, family="tpch"):
+    """Time each kernel on the inputs a query phase kept (`phase_tpch22`,
+    `phase_tpcds`; already held to their contracts there), cold and warm,
+    as time_large does."""
     from presto_tpu_torch.kernels._build import library, stream_ptr
     from presto_tpu_torch.ops import groupby_kernels as gk
     from presto_tpu_torch.ops import hash_kernels as hk
@@ -1688,7 +2062,7 @@ def time_tpch22(torch, flush, timed):
             r = _large_row(torch, bares[name](torch, libs[name], sp, *args),
                            flush, _call(launchers[name][0], args),
                            _call(launchers[name][1], args))
-            r["shape"] = f"tpch {label}: {r['shape']}"
+            r["shape"] = f"{family} {label}: {r['shape']}"
             r["check"] = "held to its contract in the query phase"
             print_large(name, r)
             rows.setdefault(name, []).append(r)
@@ -1699,7 +2073,7 @@ def _call(fn, args):
     return lambda: fn(*args)
 
 
-def phase_timing(torch, inputs, timed, errs):
+def phase_timing(torch, inputs, timed, ds_timed, errs):
     """Each kernel on the inputs the query phase handed its launcher:
     - kernel alone: the bare `lib.*_launch` on outputs allocated once
       (`bare_launches`), warm (inputs as the last launch left them in L2)
@@ -1714,8 +2088,8 @@ def phase_timing(torch, inputs, timed, errs):
       one `index_add_` call on the states stacked as int64.
     Then group_insert and join_insert at their large shapes (`time_large`,
     cold and warm at every shape), and each kernel on the 22-query inputs
-    `timed` (`time_tpch22`), where the serial plain versions are not
-    run."""
+    `timed` and on its largest TPC-DS input `ds_timed` (`time_tpch22`),
+    where the serial plain versions are not run."""
     from presto_tpu_torch.ops import groupby_kernels as gk
     from presto_tpu_torch.ops import hash_kernels as hk
 
@@ -1809,6 +2183,11 @@ def phase_timing(torch, inputs, timed, errs):
         rows[name]["large"] = rs
     for name, rs in time_tpch22(torch, flush, timed).items():
         rows[name].setdefault("large", []).extend(rs)
+    for name, rs in time_tpch22(torch, flush, ds_timed, "tpcds").items():
+        rows[name].setdefault("large", []).extend(rs)
+        for r in rs:
+            print(f"timing {name} [tpcds largest]: cold over bound "
+                  f"{r['ms'] / r['bound']:.1f}x")
     return rows
 
 
@@ -1835,12 +2214,14 @@ def main() -> int:
     launches, inputs, _, cat = phase_queries(torch)
     timed = phase_tpch22(torch, cat, errs)
     del cat
-    rows = phase_timing(torch, inputs, timed, errs)
+    ds_launches, ds_timed = phase_tpcds(torch, errs)
+    rows = phase_timing(torch, inputs, timed, ds_timed, errs)
     kernels = []
     for name, r in rows.items():
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            "tpcds_launches": ds_launches.get(name, 0),
             "max_abs_err": errs[name],
             "ms": r["ms_warm"] if r["ms_cold"] is None else r["ms_cold"],
             "cold": r["ms_cold"] is not None, "ms_warm": r["ms_warm"],

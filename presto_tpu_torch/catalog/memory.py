@@ -48,6 +48,14 @@ def _is_null(v) -> bool:
     return v is pd.NA
 
 
+def _null_mask(arr: np.ndarray) -> np.ndarray:
+    """The NULLs of an object array, in one vectorized pass: None, NaN and
+    pandas' NA (as _is_null), and also NaT."""
+    import pandas as pd
+
+    return np.asarray(pd.isna(arr), dtype=bool)
+
+
 def _infer_type(arr: np.ndarray) -> Type:
     if arr.dtype == np.bool_:
         return BOOLEAN
@@ -108,7 +116,7 @@ class MemoryTable:
             t = (types or {}).get(col) or _infer_type(arr)
             valid = None
             if arr.dtype == object:
-                nulls = np.array([_is_null(v) for v in arr])
+                nulls = _null_mask(arr)
                 if nulls.any():
                     valid = ~nulls
                     arr = np.where(nulls, "" if t.is_string else 0, arr)

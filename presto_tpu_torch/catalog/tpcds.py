@@ -1,0 +1,601 @@
+"""TPC-DS data-generator connector.
+
+Analog of presto-tpcds (TpcdsConnectorFactory / TpcdsMetadata over the
+teradata tpcds generator): an in-process, deterministic, scale-factor-
+parameterized TPC-DS dataset served as columnar batches.
+
+Covers the retail-sales star needed by the benchmark suite's Q64 config and
+the common TPC-DS query shapes: store_sales / store_returns fact tables plus
+the date_dim, store, item, customer, customer_address,
+customer_demographics, household_demographics, income_band and promotion
+dimensions. Cardinalities follow the TPC-DS scaling table (store_sales
+~2.88M rows/SF; dimension sizes are the spec's discrete per-SF values,
+geometrically interpolated between published points). Values are generated
+with seeded numpy following the spec's domains — like the TPC-H connector it
+is deterministic but not bit-compatible with dsdgen.
+
+Referential integrity is exact: every fact-table surrogate key joins to its
+dimension (ss_sold_date_sk ⊆ d_date_sk etc.), and store_returns is a subset
+of store_sales items, so star-join plans behave like the real dataset.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from presto_tpu_torch.catalog.memory import MemoryConnector
+from presto_tpu_torch.catalog.tpch import _money  # same decimal-cents helper
+from presto_tpu_torch.types import DATE, DecimalType
+
+_D72 = DecimalType(7, 2)
+
+# TPC-DS scaling table (spec table 3-2), published points per SF; other SFs
+# interpolate geometrically. store_sales scales linearly.
+_SCALE_POINTS = {
+    # sf: (customer, item, store, promotion)
+    1: (100_000, 18_000, 12, 300),
+    10: (500_000, 102_000, 42, 500),
+    100: (2_000_000, 204_000, 402, 1000),
+    1000: (12_000_000, 300_000, 1002, 1500),
+}
+
+_DATE_DIM_ROWS = 73_049  # fixed: 1900-01-01 .. 2100-01-01
+_D_DATE_SK0 = 2_415_022  # julian day of 1900-01-01 (spec's first d_date_sk)
+_EPOCH_1900 = -25_567    # days from 1970-01-01 to 1900-01-01
+
+
+def _interp(sf: float, idx: int) -> int:
+    pts = sorted(_SCALE_POINTS)
+    if sf <= pts[0]:
+        lo = hi = pts[0]
+    elif sf >= pts[-1]:
+        lo = hi = pts[-1]
+    else:
+        lo = max(p for p in pts if p <= sf)
+        hi = min(p for p in pts if p >= sf)
+    a, b = _SCALE_POINTS[lo][idx], _SCALE_POINTS[hi][idx]
+    if lo == hi:
+        base = a
+    else:
+        import math
+
+        t = (math.log(sf) - math.log(lo)) / (math.log(hi) - math.log(lo))
+        base = a * (b / a) ** t
+    return max(1, int(base))
+
+
+class TpcdsGenerator:
+    def __init__(self, sf: float = 1.0, seed: int = 20030101):
+        self.sf = sf
+        self.seed = seed
+        self.n_customer = _interp(sf, 0)
+        self.n_item = _interp(sf, 1)
+        self.n_store = _interp(sf, 2)
+        self.n_promo = _interp(sf, 3)
+        self.n_store_sales = int(2_880_404 * sf)
+        self.n_cdemo = 1_920_800  # fixed per spec
+        self.n_hdemo = 7_200     # fixed
+        self.n_income = 20       # fixed
+        self.n_address = max(1, self.n_customer // 2)
+
+    def _rng(self, salt: int) -> np.random.Generator:
+        return np.random.default_rng(self.seed + salt)
+
+    def date_dim(self) -> Dict[str, np.ndarray]:
+        sk = _D_DATE_SK0 + np.arange(_DATE_DIM_ROWS)
+        days = _EPOCH_1900 + np.arange(_DATE_DIM_ROWS)
+        dt = days.astype("datetime64[D]")
+        years = dt.astype("datetime64[Y]").astype(int) + 1970
+        months = dt.astype("datetime64[M]").astype(int) % 12 + 1
+        dom = (dt - dt.astype("datetime64[M]")).astype(int) + 1
+        dow = (days + 4) % 7  # 1970-01-01 was a Thursday
+        return {
+            "d_date_sk": sk,
+            "d_date": days,
+            "d_year": years.astype(np.int64),
+            "d_moy": months.astype(np.int64),
+            "d_dom": dom.astype(np.int64),
+            "d_dow": dow.astype(np.int64),
+            "d_qoy": ((months - 1) // 3 + 1).astype(np.int64),
+            "d_week_seq": (np.arange(_DATE_DIM_ROWS) // 7 + 1).astype(np.int64),
+        }
+
+    def store(self) -> Dict[str, np.ndarray]:
+        n = self.n_store
+        rng = self._rng(1)
+        return {
+            "s_store_sk": np.arange(1, n + 1),
+            "s_store_id": np.array([f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "s_store_name": np.array([f"store#{i % 30}" for i in range(1, n + 1)], object),
+            "s_number_employees": rng.integers(200, 301, n),
+            "s_floor_space": rng.integers(5_000_000, 10_000_001, n),
+            "s_state": np.array([["TN", "CA", "TX", "NY", "OH"][i % 5] for i in range(n)], object),
+            "s_market_id": rng.integers(1, 11, n),
+            "s_zip": np.array([str(35000 + (i * 97) % 60000)
+                               for i in range(n)], object),
+        }
+
+    def item(self) -> Dict[str, np.ndarray]:
+        n = self.n_item
+        rng = self._rng(2)
+        cats = ["Books", "Children", "Electronics", "Home", "Jewelry",
+                "Men", "Music", "Shoes", "Sports", "Women"]
+        return {
+            "i_item_sk": np.arange(1, n + 1),
+            "i_item_id": np.array([f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "i_product_name": np.array([f"product{i % 25_000}" for i in range(1, n + 1)], object),
+            "i_current_price": ("raw72", _money(rng, 0.09, 99.99, n)),
+            "i_wholesale_cost": ("raw72", _money(rng, 0.02, 88.0, n)),
+            "i_brand_id": rng.integers(1, 1001, n) * 10000 + rng.integers(1, 10, n),
+            "i_brand": np.array([f"brand#{i % 1000}" for i in range(n)], object),
+            "i_category": np.array([cats[i % len(cats)] for i in range(n)], object),
+            "i_category_id": (np.arange(n) % len(cats) + 1).astype(np.int64),
+            "i_manufact_id": rng.integers(1, 1001, n),
+            "i_size": np.array([["small", "medium", "large", "extra large", "economy", "N/A", "petite"][i % 7] for i in range(n)], object),
+            "i_color": np.array([["red", "green", "blue", "white", "black", "ivory", "khaki", "salmon"][i % 8] for i in range(n)], object),
+        }
+
+    def customer(self) -> Dict[str, np.ndarray]:
+        n = self.n_customer
+        rng = self._rng(3)
+        return {
+            "c_customer_sk": np.arange(1, n + 1),
+            "c_customer_id": np.array([f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "c_current_cdemo_sk": rng.integers(1, self.n_cdemo + 1, n),
+            "c_current_hdemo_sk": rng.integers(1, self.n_hdemo + 1, n),
+            "c_current_addr_sk": rng.integers(1, self.n_address + 1, n),
+            "c_first_shipto_date_sk": _D_DATE_SK0 + rng.integers(36_000, 37_000, n),
+            "c_birth_year": rng.integers(1924, 1993, n),
+            "c_birth_country": np.array([["UNITED STATES", "CANADA", "MEXICO", "GERMANY", "JAPAN"][i % 5] for i in range(n)], object),
+        }
+
+    def customer_address(self) -> Dict[str, np.ndarray]:
+        n = self.n_address
+        rng = self._rng(4)
+        return {
+            "ca_address_sk": np.arange(1, n + 1),
+            "ca_city": np.array([f"city{i % 700}" for i in range(n)], object),
+            "ca_state": np.array([["TN", "CA", "TX", "NY", "OH", "GA", "IL", "WA"][i % 8] for i in range(n)], object),
+            "ca_zip": np.array([str(10000 + (i * 7) % 89999) for i in range(n)], object),
+            "ca_country": np.array(["United States"] * n, object),
+            "ca_gmt_offset": rng.choice([-8, -7, -6, -5], n).astype(np.int64),
+        }
+
+    def customer_demographics(self) -> Dict[str, np.ndarray]:
+        n = self.n_cdemo
+        return {
+            "cd_demo_sk": np.arange(1, n + 1),
+            "cd_gender": np.array([["M", "F"][i % 2] for i in range(n)], object),
+            "cd_marital_status": np.array([["M", "S", "D", "W", "U"][(i // 2) % 5] for i in range(n)], object),
+            "cd_education_status": np.array([["Primary", "Secondary", "College", "2 yr Degree", "4 yr Degree", "Advanced Degree", "Unknown"][(i // 10) % 7] for i in range(n)], object),
+            "cd_purchase_estimate": ((i0 := np.arange(n)) // 70 % 20 * 500 + 500).astype(np.int64),
+            "cd_dep_count": (i0 // 1400 % 7).astype(np.int64),
+        }
+
+    def household_demographics(self) -> Dict[str, np.ndarray]:
+        n = self.n_hdemo
+        return {
+            "hd_demo_sk": np.arange(1, n + 1),
+            "hd_income_band_sk": (np.arange(n) % self.n_income + 1).astype(np.int64),
+            "hd_buy_potential": np.array([[">10000", "5001-10000", "1001-5000", "501-1000", "0-500", "Unknown"][i % 6] for i in range(n)], object),
+            "hd_dep_count": (np.arange(n) // 6 % 10).astype(np.int64),
+            "hd_vehicle_count": (np.arange(n) // 60 % 5).astype(np.int64),
+        }
+
+    def income_band(self) -> Dict[str, np.ndarray]:
+        n = self.n_income
+        lb = np.arange(n, dtype=np.int64) * 10_000
+        return {
+            "ib_income_band_sk": np.arange(1, n + 1),
+            "ib_lower_bound": lb,
+            "ib_upper_bound": lb + 10_000,
+        }
+
+    def promotion(self) -> Dict[str, np.ndarray]:
+        n = self.n_promo
+        return {
+            "p_promo_sk": np.arange(1, n + 1),
+            "p_promo_id": np.array([f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "p_channel_email": np.array([["N", "Y"][i % 10 == 0] for i in range(n)], object),
+            "p_channel_tv": np.array([["N", "Y"][i % 7 == 0] for i in range(n)], object),
+        }
+
+    # -- remaining dimensions (spec table 3-2 fixed/scaled sizes) ---------
+
+    def time_dim(self) -> Dict[str, np.ndarray]:
+        n = 86_400  # fixed: one row per second of day
+        sec = np.arange(n, dtype=np.int64)
+        return {
+            "t_time_sk": sec,
+            "t_time": sec,
+            "t_hour": sec // 3600,
+            "t_minute": sec % 3600 // 60,
+            "t_second": sec % 60,
+            "t_am_pm": np.array([["AM", "PM"][s >= 43200] for s in
+                                 range(0, n, 1)], object),
+            "t_shift": np.array(
+                [["third", "first", "second"][min(s // 28800, 2)]
+                 for s in range(0, n, 1)], object),
+        }
+
+    @property
+    def n_warehouse(self) -> int:
+        return max(1, int(round(5 * max(self.sf, 1) ** 0.5)))
+
+    def warehouse(self) -> Dict[str, np.ndarray]:
+        n = self.n_warehouse
+        rng = self._rng(10)
+        return {
+            "w_warehouse_sk": np.arange(1, n + 1),
+            "w_warehouse_id": np.array(
+                [f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "w_warehouse_name": np.array(
+                [f"warehouse#{i}" for i in range(n)], object),
+            "w_warehouse_sq_ft": rng.integers(50_000, 1_000_001, n),
+            "w_state": np.array([["TN", "CA", "TX", "NY", "OH"][i % 5]
+                                 for i in range(n)], object),
+        }
+
+    def ship_mode(self) -> Dict[str, np.ndarray]:
+        n = 20  # fixed
+        types = ["EXPRESS", "NEXT DAY", "OVERNIGHT", "REGULAR", "LIBRARY"]
+        carriers = ["UPS", "FEDEX", "AIRBORNE", "USPS", "DHL",
+                    "TBS", "ZHOU", "LATVIAN", "MSC", "ALLIANCE"]
+        return {
+            "sm_ship_mode_sk": np.arange(1, n + 1),
+            "sm_ship_mode_id": np.array(
+                [f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "sm_type": np.array([types[i % 5] for i in range(n)], object),
+            "sm_carrier": np.array([carriers[i % 10] for i in range(n)],
+                                   object),
+        }
+
+    def reason(self) -> Dict[str, np.ndarray]:
+        n = max(1, int(round(35 * max(self.sf, 1) ** 0.2)))
+        descs = ["Package was damaged", "Stopped working",
+                 "Did not get it on time", "Not the product that was ordered",
+                 "Parts missing", "Does not work with a product that I have",
+                 "Gift exchange", "Did not like the color",
+                 "Did not like the model", "Did not like the make",
+                 "Did not fit", "Wrong size", "Lost my job",
+                 "Found a better price in a store", "Not working any more",
+                 "unknown"]
+        return {
+            "r_reason_sk": np.arange(1, n + 1),
+            "r_reason_id": np.array(
+                [f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "r_reason_desc": np.array([descs[i % len(descs)]
+                                       for i in range(n)], object),
+        }
+
+    def call_center(self) -> Dict[str, np.ndarray]:
+        n = max(1, int(round(6 * max(self.sf, 1) ** 0.3)))
+        rng = self._rng(11)
+        return {
+            "cc_call_center_sk": np.arange(1, n + 1),
+            "cc_call_center_id": np.array(
+                [f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "cc_name": np.array([f"call center {i}" for i in range(n)], object),
+            "cc_class": np.array([["small", "medium", "large"][i % 3]
+                                  for i in range(n)], object),
+            "cc_employees": rng.integers(1, 7_000_000, n),
+            "cc_manager": np.array([f"manager{i % 40}" for i in range(n)],
+                                   object),
+        }
+
+    def catalog_page(self) -> Dict[str, np.ndarray]:
+        n = max(1, int(round(11_718 * max(self.sf, 1) ** 0.3)))
+        rng = self._rng(12)
+        return {
+            "cp_catalog_page_sk": np.arange(1, n + 1),
+            "cp_catalog_page_id": np.array(
+                [f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "cp_catalog_number": (np.arange(n) // 108 + 1).astype(np.int64),
+            "cp_catalog_page_number": (np.arange(n) % 108 + 1).astype(np.int64),
+            "cp_start_date_sk": _D_DATE_SK0 + rng.integers(35_000, 36_000, n),
+            "cp_type": np.array([["bi-annual", "quarterly", "monthly"][i % 3]
+                                 for i in range(n)], object),
+        }
+
+    def web_site(self) -> Dict[str, np.ndarray]:
+        n = max(1, int(round(30 * max(self.sf, 1) ** 0.25)))
+        return {
+            "web_site_sk": np.arange(1, n + 1),
+            "web_site_id": np.array(
+                [f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "web_name": np.array([f"site_{i % 15}" for i in range(n)], object),
+            "web_class": np.array(["Unknown"] * n, object),
+            "web_manager": np.array([f"manager{i % 20}" for i in range(n)],
+                                    object),
+        }
+
+    def web_page(self) -> Dict[str, np.ndarray]:
+        n = max(1, int(round(60 * max(self.sf, 1) ** 0.5)))
+        rng = self._rng(13)
+        return {
+            "wp_web_page_sk": np.arange(1, n + 1),
+            "wp_web_page_id": np.array(
+                [f"AAAAAAAA{str(i).zfill(8)}" for i in range(1, n + 1)], object),
+            "wp_creation_date_sk": _D_DATE_SK0 + rng.integers(35_000, 36_500, n),
+            "wp_url": np.array(["http://www.foo.com"] * n, object),
+            "wp_type": np.array(
+                [["ad", "dynamic", "feedback", "general", "order",
+                  "protected", "welcome"][i % 7] for i in range(n)], object),
+            "wp_char_count": rng.integers(100, 8_000, n),
+        }
+
+    def inventory(self) -> Dict[str, np.ndarray]:
+        """Weekly stock per (warehouse, item). Below SF1 items are sampled
+        (deviation from the spec's full cross product — keeps small test
+        scale factors tractable; at SF>=1 every item is covered)."""
+        n_item = self.n_item if self.sf >= 1 else max(
+            1, int(self.n_item * self.sf))
+        weeks = 261  # spec: weekly snapshots over the 5-year window
+        nw = self.n_warehouse
+        rng = self._rng(14)
+        item = np.tile(np.repeat(np.arange(1, n_item + 1), nw), weeks)
+        wh = np.tile(np.arange(1, nw + 1), n_item * weeks)
+        date = np.repeat(
+            _D_DATE_SK0 + 35_795 + np.arange(weeks, dtype=np.int64) * 7,
+            n_item * nw)
+        n = item.shape[0]
+        return {
+            "inv_date_sk": date,
+            "inv_item_sk": item.astype(np.int64),
+            "inv_warehouse_sk": wh.astype(np.int64),
+            "inv_quantity_on_hand": rng.integers(0, 1_000, n),
+        }
+
+    # -- catalog / web sales channels -------------------------------------
+
+    def _channel_sales(self, prefix: str, n: int, salt: int,
+                       extra_fk: Dict[str, int]):
+        """Shared generator for catalog_sales / web_sales (the channels
+        differ in prefix and channel-specific FK columns)."""
+        rng = self._rng(salt)
+        d_lo = _D_DATE_SK0 + 35_795
+        d_hi = _D_DATE_SK0 + 37_621
+        qty = rng.integers(1, 101, n, dtype=np.int64)
+        wholesale = _money(rng, 1.0, 100.0, n)
+        list_price = wholesale + _money(rng, 0.0, 100.0, n)
+        discount = rng.integers(0, 100, n, dtype=np.int64)
+        sales_price = list_price * (100 - discount) // 100
+        ext_sales = sales_price * qty
+        ship_cost = _money(rng, 0.0, 10.0, n) * qty
+        sold_date = rng.integers(d_lo, d_hi + 1, n)
+        out = {
+            f"{prefix}_sold_date_sk": sold_date,
+            f"{prefix}_sold_time_sk": rng.integers(0, 86_400, n),
+            f"{prefix}_ship_date_sk": np.minimum(
+                sold_date + rng.integers(2, 121, n), d_hi),
+            f"{prefix}_item_sk": rng.integers(1, self.n_item + 1, n),
+            f"{prefix}_order_number": np.arange(1, n + 1),
+            f"{prefix}_quantity": qty,
+            f"{prefix}_wholesale_cost": ("raw72", wholesale),
+            f"{prefix}_list_price": ("raw72", list_price),
+            f"{prefix}_sales_price": ("raw72", sales_price),
+            f"{prefix}_ext_sales_price": ("raw72", ext_sales),
+            f"{prefix}_ext_ship_cost": ("raw72", ship_cost),
+            f"{prefix}_net_paid": ("raw72", ext_sales),
+            f"{prefix}_net_profit": ("raw72",
+                                     ext_sales - wholesale * qty),
+        }
+        for col, domain in extra_fk.items():
+            out[col] = rng.integers(1, domain + 1, n)
+        return out
+
+    def catalog_sales(self) -> Dict[str, np.ndarray]:
+        n = int(1_441_548 * self.sf)
+        return self._channel_sales("cs", max(n, 1), 15, {
+            "cs_bill_customer_sk": self.n_customer,
+            "cs_ship_customer_sk": self.n_customer,
+            "cs_call_center_sk": max(1, int(round(6 * max(self.sf, 1) ** 0.3))),
+            "cs_catalog_page_sk": max(1, int(round(11_718 * max(self.sf, 1) ** 0.3))),
+            "cs_ship_mode_sk": 20,
+            "cs_warehouse_sk": self.n_warehouse,
+            "cs_promo_sk": self.n_promo,
+        })
+
+    def catalog_returns(self) -> Dict[str, np.ndarray]:
+        sales = self._ensure_channel("cs")
+        return self._channel_returns("cs", "cr", sales, 16, {
+            "cr_reason_sk": max(1, int(round(35 * max(self.sf, 1) ** 0.2))),
+        })
+
+    def web_sales(self) -> Dict[str, np.ndarray]:
+        n = int(719_384 * self.sf)
+        return self._channel_sales("ws", max(n, 1), 17, {
+            "ws_bill_customer_sk": self.n_customer,
+            "ws_ship_customer_sk": self.n_customer,
+            "ws_web_site_sk": max(1, int(round(30 * max(self.sf, 1) ** 0.25))),
+            "ws_web_page_sk": max(1, int(round(60 * max(self.sf, 1) ** 0.5))),
+            "ws_ship_mode_sk": 20,
+            "ws_warehouse_sk": self.n_warehouse,
+            "ws_promo_sk": self.n_promo,
+        })
+
+    def web_returns(self) -> Dict[str, np.ndarray]:
+        sales = self._ensure_channel("ws")
+        return self._channel_returns("ws", "wr", sales, 18, {
+            "wr_reason_sk": max(1, int(round(35 * max(self.sf, 1) ** 0.2))),
+        })
+
+    _channel_cache: Dict[str, Dict[str, np.ndarray]] = None  # type: ignore
+
+    def _ensure_channel(self, prefix: str) -> Dict[str, np.ndarray]:
+        if self._channel_cache is None:
+            self._channel_cache = {}
+        if prefix not in self._channel_cache:
+            self._channel_cache[prefix] = (
+                self.catalog_sales() if prefix == "cs" else self.web_sales())
+        return self._channel_cache[prefix]
+
+    def _channel_returns(self, sp: str, rp: str, sales, salt: int,
+                         extra_fk: Dict[str, int]):
+        """~10% of channel sales return; item/order join keys are subsets
+        of the sales table (exact referential integrity)."""
+        rng = self._rng(salt)
+        n = sales[f"{sp}_order_number"].shape[0]
+        n_ret = max(n // 10, 1)
+        ridx = rng.choice(n, n_ret, replace=False)
+        qty = sales[f"{sp}_quantity"][ridx]
+        ret_qty = np.minimum(rng.integers(1, 101, n_ret, dtype=np.int64), qty)
+        price = sales[f"{sp}_sales_price"][1][ridx]
+        out = {
+            f"{rp}_returned_date_sk": np.minimum(
+                sales[f"{sp}_sold_date_sk"][ridx]
+                + rng.integers(1, 91, n_ret),
+                _D_DATE_SK0 + 37_621),
+            f"{rp}_item_sk": sales[f"{sp}_item_sk"][ridx],
+            f"{rp}_order_number": sales[f"{sp}_order_number"][ridx],
+            f"{rp}_return_quantity": ret_qty,
+            f"{rp}_return_amount": ("raw72", price * ret_qty),
+            f"{rp}_net_loss": ("raw72", price * ret_qty // 2),
+        }
+        out[f"{rp}_refunded_customer_sk"] = (
+            sales[f"{sp}_bill_customer_sk"][ridx])
+        for col, domain in extra_fk.items():
+            out[col] = rng.integers(1, domain + 1, n_ret)
+        return out
+
+    def store_sales_and_returns(self):
+        """Full-table generation (single chunk, original RNG stream)."""
+        return self.store_sales_chunk(0, self.n_store_sales, _salt=7)
+
+    def store_sales_chunk(self, start: int, count: int, _salt=None):
+        """Generate store_sales rows [start, start+count) plus their
+        returns. Chunking bounds peak memory so SF100 (288M rows) streams
+        to parquet (see tpch.orders_lineitem_chunk — same pattern; returns
+        reference only sales inside the chunk, preserving the ticket-number
+        join)."""
+        n = count
+        if _salt is None:
+            _salt = 2000 + start // max(count, 1)
+        rng = self._rng(_salt)
+        # sales dates cluster in 1998-2002 (spec's active range)
+        d_lo = _D_DATE_SK0 + 35_795  # ~1998-01-01
+        d_hi = _D_DATE_SK0 + 37_621  # ~2002-12-31
+        qty = rng.integers(1, 101, n, dtype=np.int64)
+        # per-unit amounts (spec domains); ss_ext_* carry unit × quantity
+        wholesale = _money(rng, 1.0, 100.0, n)
+        list_price = wholesale + _money(rng, 0.0, 100.0, n)
+        discount = rng.integers(0, 100, n, dtype=np.int64)  # percent
+        sales_price = list_price * (100 - discount) // 100
+        ext_sales = sales_price * qty
+        ext_wholesale = wholesale * qty
+        ext_list = list_price * qty
+        coupon = np.where(rng.random(n) < 0.1,
+                          ext_sales // 10, np.int64(0))
+        sales = {
+            "ss_sold_date_sk": rng.integers(d_lo, d_hi + 1, n),
+            "ss_item_sk": rng.integers(1, self.n_item + 1, n),
+            "ss_customer_sk": rng.integers(1, self.n_customer + 1, n),
+            "ss_cdemo_sk": rng.integers(1, self.n_cdemo + 1, n),
+            "ss_hdemo_sk": rng.integers(1, self.n_hdemo + 1, n),
+            "ss_addr_sk": rng.integers(1, self.n_address + 1, n),
+            "ss_store_sk": rng.integers(1, self.n_store + 1, n),
+            "ss_promo_sk": rng.integers(1, self.n_promo + 1, n),
+            "ss_ticket_number": np.arange(start + 1, start + n + 1),
+            "ss_quantity": qty,
+            "ss_wholesale_cost": ("raw72", wholesale),
+            "ss_list_price": ("raw72", list_price),
+            "ss_sales_price": ("raw72", sales_price),
+            "ss_ext_wholesale_cost": ("raw72", ext_wholesale),
+            "ss_ext_list_price": ("raw72", ext_list),
+            "ss_ext_sales_price": ("raw72", ext_sales),
+            "ss_coupon_amt": ("raw72", coupon),
+            "ss_net_paid": ("raw72", ext_sales - coupon),
+            "ss_net_profit": ("raw72", ext_sales - coupon - ext_wholesale),
+        }
+        # ~10% of sales are returned (spec return ratio)
+        n_ret = n // 10
+        ridx = rng.choice(n, n_ret, replace=False)
+        ret_qty = np.minimum(rng.integers(1, 101, n_ret, dtype=np.int64), qty[ridx])
+        returns = {
+            "sr_returned_date_sk": np.minimum(
+                sales["ss_sold_date_sk"][ridx] + rng.integers(1, 91, n_ret), d_hi
+            ),
+            "sr_item_sk": sales["ss_item_sk"][ridx],
+            "sr_customer_sk": sales["ss_customer_sk"][ridx],
+            "sr_ticket_number": sales["ss_ticket_number"][ridx],
+            "sr_return_quantity": ret_qty,
+            "sr_return_amt": ("raw72", sales_price[ridx] * ret_qty),
+            "sr_store_sk": sales["ss_store_sk"][ridx],
+        }
+        # drawn LAST so the pre-existing columns' RNG stream is unchanged
+        # (deterministic data must stay stable across additions)
+        sales["ss_sold_time_sk"] = rng.integers(0, 86_400, n)
+        return sales, returns
+
+
+_DS_TYPES: Dict[str, Dict[str, object]] = {
+    "date_dim": {"d_date": DATE},
+}
+
+
+class TpcdsConnector(MemoryConnector):
+    """Lazy TPC-DS connector: tables generate on first access and are cached
+    (presto-tpcds TpcdsConnectorFactory analog)."""
+
+    def __init__(self, sf: float = 1.0, name: str = "tpcds"):
+        super().__init__(name)
+        self.sf = sf
+        self.gen = TpcdsGenerator(sf)
+
+    def table_names(self) -> List[str]:
+        # all 24 spec tables (3 sales channels + inventory + dimensions)
+        return ["date_dim", "time_dim", "store", "item", "customer",
+                "customer_address", "customer_demographics",
+                "household_demographics", "income_band", "promotion",
+                "warehouse", "ship_mode", "reason", "call_center",
+                "catalog_page", "web_site", "web_page",
+                "store_sales", "store_returns",
+                "catalog_sales", "catalog_returns",
+                "web_sales", "web_returns", "inventory"]
+
+    def _ensure(self, name: str):
+        if name in self.tables:
+            return
+        if name in ("store_sales", "store_returns"):
+            sales, returns = self.gen.store_sales_and_returns()
+            self._add("store_sales", sales)
+            self._add("store_returns", returns)
+        elif name in ("catalog_sales", "catalog_returns"):
+            self._add("catalog_sales", self.gen._ensure_channel("cs"))
+            self._add("catalog_returns", self.gen.catalog_returns())
+            self.gen._channel_cache.pop("cs", None)  # release generator copy
+        elif name in ("web_sales", "web_returns"):
+            self._add("web_sales", self.gen._ensure_channel("ws"))
+            self._add("web_returns", self.gen.web_returns())
+            self.gen._channel_cache.pop("ws", None)
+        elif name in self.table_names():
+            self._add(name, getattr(self.gen, name)())
+        else:
+            raise KeyError(f"table not found: {name}")
+
+    def _add(self, name: str, data: Dict[str, np.ndarray]):
+        converted = {
+            c: (("raw_decimal", _D72, v[1])
+                if isinstance(v, tuple) and len(v) == 2 and v[0] == "raw72"
+                else v)
+            for c, v in data.items()
+        }
+        self.add_generated(name, converted, types=_DS_TYPES.get(name))
+
+    def get_table(self, name: str):
+        self._ensure(name)
+        return super().get_table(name)
+
+    def read_split(self, split, columns, device, capacity=None):
+        self._ensure(split.table)
+        return super().read_split(split, columns, device, capacity)
+
+
+def tpcds_catalog(sf: float = 1.0):
+    from presto_tpu_torch.connector import Catalog
+
+    cat = Catalog()
+    cat.register("tpcds", TpcdsConnector(sf), default=True)
+    return cat

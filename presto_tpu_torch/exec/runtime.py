@@ -12,15 +12,20 @@ overflow.
 
 Operators: TableScan (also with no column read), Filter, Project,
 Aggregate (single step; sum, avg, count, count(*), count_if, min, max,
-arbitrary, bool_and/bool_or, and none for DISTINCT; global, small-domain,
-sort- and hash-engine grouping), HashJoin (inner, left and full; sort and
-hash engines), SemiJoin (semi, anti, null-aware NOT IN, residual EXISTS),
-Sort and TopN, Limit, Output, and uncorrelated scalar subqueries bound as
-constants: what the 22 TPC-H queries run. Anything else raises
-NotImplementedError naming it. Not yet here: GRACE/spilled aggregation,
-radix partitioning, adaptive execution, history-based optimization,
-multiway joins, set operations, windows, nested-loop and index joins,
-unnest.
+arbitrary, bool_and/bool_or, the variance family, covar_pop/covar_samp/
+corr, and none for DISTINCT; global, small-domain, sort- and hash-engine
+grouping; count/sum/avg DISTINCT beside other aggregates, max_by/min_by
+and approx_percentile over the materialized input, sorted once), HashJoin
+(inner, left and full; sort and hash engines), SemiJoin (semi, anti,
+null-aware NOT IN, residual EXISTS), NestedLoopJoin (cross and non-equi
+inner joins), SetOp (UNION [ALL], INTERSECT [ALL], EXCEPT [ALL]; with it
+GROUPING SETS, ROLLUP and CUBE, which the planner lowers to UNION ALL),
+Window, Sort and TopN, Limit, Output, and uncorrelated scalar subqueries
+bound as constants. Anything else raises NotImplementedError naming it.
+Not yet here: GRACE/spilled aggregation, radix partitioning, adaptive
+execution, history-based optimization, multiway joins, index joins,
+unnest, and the host-built aggregates (array_agg, map_agg,
+numeric_histogram, tdigest_agg, approx_set, merge).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import dataclasses
 from types import SimpleNamespace
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from presto_tpu_torch.batch import (
@@ -47,7 +53,12 @@ from presto_tpu_torch.expr.compile import (
     unscale,
 )
 from presto_tpu_torch.expr.ir import Constant, InputRef, substitute_params
-from presto_tpu_torch.ops.grouping import KeyCol, StateCol, grouped_merge
+from presto_tpu_torch.ops.grouping import (
+    KeyCol,
+    StateCol,
+    _minmax_identity,
+    grouped_merge,
+)
 from presto_tpu_torch.ops.join import (
     align_probe_strings,
     build_side,
@@ -61,7 +72,15 @@ from presto_tpu_torch.ops.join import (
     probe_expand,
     probe_unique,
 )
-from presto_tpu_torch.ops.sort import SortKey, compact, limit_batch, sort_batch
+from presto_tpu_torch.ops.sort import (
+    SortKey,
+    compact,
+    lex_sort_permutation,
+    limit_batch,
+    permute_batch,
+    sort_batch,
+    sort_permutation,
+)
 from presto_tpu_torch.plan.agg_states import (
     agg_state_layout,
     limb_pairs,
@@ -73,15 +92,18 @@ from presto_tpu_torch.plan.nodes import (
     Filter,
     HashJoin,
     Limit,
+    NestedLoopJoin,
     Output,
     PlanNode,
     Project,
     QueryPlan,
     SemiJoin,
+    SetOp,
     Sort,
     TableScan,
+    Window,
 )
-from presto_tpu_torch.types import DecimalType, Type, torch_dtype
+from presto_tpu_torch.types import BIGINT, DecimalType, Type, torch_dtype
 
 
 @dataclasses.dataclass
@@ -189,6 +211,11 @@ def _project(b: Batch, compiled) -> Batch:
 # node executors
 
 
+# operators whose output batches can be sparse: their consumers see them
+# coalesced (MergingPageOutput analog)
+_SPARSE_OUTPUT = (HashJoin, NestedLoopJoin)
+
+
 def execute_node(node: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
     """Execute a plan node to a stream of batches; a Filter/Project chain
     on top of a breaker applies per output batch."""
@@ -196,7 +223,7 @@ def execute_node(node: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
     stream = _execute_base(base, ctx)
     if down is not None:
         stream = (down(b) for b in stream)
-    if ctx.config.merge_sparse_output and isinstance(base, HashJoin):
+    if ctx.config.merge_sparse_output and isinstance(base, _SPARSE_OUTPUT):
         stream = _merging_output(stream, ctx.config.batch_rows)
     yield from stream
 
@@ -206,7 +233,7 @@ def _fused_child(node: PlanNode, ctx: ExecContext):
     child — the ScanFilterAndProject fusion point."""
     base, up = collapse_chain(node)
     stream = _execute_base(base, ctx)
-    if ctx.config.merge_sparse_output and isinstance(base, HashJoin):
+    if ctx.config.merge_sparse_output and isinstance(base, _SPARSE_OUTPUT):
         stream = _merging_output(stream, ctx.config.batch_rows)
     return stream, (up or (lambda b: b))
 
@@ -273,11 +300,20 @@ def _execute_base(base: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
     if isinstance(base, HashJoin):
         yield from _execute_join(base, ctx)
         return
+    if isinstance(base, NestedLoopJoin):
+        yield from _execute_nljoin(base, ctx)
+        return
     if isinstance(base, SemiJoin):
         yield from _execute_semijoin(base, ctx)
         return
+    if isinstance(base, SetOp):
+        yield from _execute_setop(base, ctx)
+        return
     if isinstance(base, Sort):
         yield from _execute_sort(base, ctx)
+        return
+    if isinstance(base, Window):
+        yield from _execute_window(base, ctx)
         return
     if isinstance(base, Limit):
         remaining = base.count
@@ -325,15 +361,36 @@ def _scan_batches(scan: TableScan, ctx: ExecContext) -> Iterator[Batch]:
 
 # -- aggregation --------------------------------------------------------------
 
-# aggregate functions this slice's accumulators implement
-# (the planner writes every as bool_and and any_value as arbitrary)
-_SUPPORTED_AGGS = {"sum", "count_star", "count", "count_if", "avg", "min",
-                   "max", "arbitrary", "bool_and", "bool_or"}
+_VARIANCE_FNS = {"var_samp", "var_pop", "stddev_samp", "stddev_pop"}
+_COVAR_FNS = {"covar_pop", "covar_samp", "corr"}
+# order-dependent aggregates: computed over the materialized input
+# (_execute_materialized_aggregate), not by mergeable states
+_SORTED_AGGS = {"approx_percentile", "__approx_percentile_w", "max_by",
+                "min_by", "count_distinct", "sum_distinct", "avg_distinct"}
+# aggregate functions the port's accumulators implement (the planner
+# writes every as bool_and, any_value as arbitrary, variance as var_samp
+# and stddev as stddev_samp); not the ones the JAX package builds on the
+# host (array_agg, map_agg, numeric_histogram, tdigest_agg, approx_set,
+# merge)
+_SUPPORTED_AGGS = ({"sum", "count_star", "count", "count_if", "avg", "min",
+                    "max", "arbitrary", "bool_and", "bool_or"}
+                   | _VARIANCE_FNS | _COVAR_FNS | _SORTED_AGGS)
 
 
-def _input_state(b: Batch, name: str, op: str, a, st: Type) -> StateCol:
+def _as_double(c: Column, t: Type) -> torch.Tensor:
+    """Column values as float64, unscaling decimals (limb-combined for
+    long decimals)."""
+    v = c.combined_f64() if c.hi is not None else c.values.to(torch.float64)
+    if isinstance(t, DecimalType):
+        v = unscale(v, t.scale)
+    return v
+
+
+def _input_state(b: Batch, name: str, op: str, a, st: Type,
+                 in_types: Dict[str, Type]) -> StateCol:
     """Raw input column(s) → one state column for grouped_merge (the
-    accumulator `addInput` step)."""
+    accumulator `addInput` step; the variance family keeps count, sum and
+    sum of squares, the covariances their cross sums)."""
     suffix = name[len(a.symbol):] if name.startswith(a.symbol) else ""
     if op == "count_add":
         if a.fn == "count_if":
@@ -342,6 +399,9 @@ def _input_state(b: Batch, name: str, op: str, a, st: Type) -> StateCol:
             if c.validity is not None:
                 vals = torch.where(c.validity, vals, 0)
             return StateCol(vals, None, "count_add")
+        if a.fn in _COVAR_FNS:
+            both = b.column(a.arg).valid_mask() & b.column(a.arg2).valid_mask()
+            return StateCol(both.to(torch.int64), None, "count_add")
         if a.fn == "count_star" or a.arg is None:
             return StateCol(b.live.to(torch.int64), None, "count_add")
         # count(col) and avg's count: the valid inputs
@@ -360,11 +420,21 @@ def _input_state(b: Batch, name: str, op: str, a, st: Type) -> StateCol:
     c = b.column(a.arg)
     if a.fn in ("bool_and", "bool_or"):
         return StateCol(c.values.to(torch.int8), c.validity, op)
+    if a.fn in _VARIANCE_FNS:
+        x = _as_double(c, in_types[a.arg])
+        return StateCol(x * x if suffix == "$sumsq" else x, c.validity, "sum")
+    if a.fn in _COVAR_FNS:
+        cy = b.column(a.arg2)
+        x = _as_double(c, in_types[a.arg])
+        y = _as_double(cy, in_types[a.arg2])
+        both = c.valid_mask() & cy.valid_mask()
+        val = {"$sx": x, "$sy": y, "$sxy": x * y,
+               "$sxx": x * x, "$syy": y * y}[suffix]
+        return StateCol(val, both, "sum")
     if c.hi is not None:
         # long-decimal input to min/max/arbitrary: the combined float64
         # value scaled to the SQL value (the DOUBLE state type)
-        return StateCol(unscale(c.combined_f64(), b.type_of(a.arg).scale),
-                        c.validity, op)
+        return StateCol(_as_double(c, in_types[a.arg]), c.validity, op)
     return StateCol(c.values.to(torch_dtype(st.dtype)), c.validity, op)
 
 
@@ -433,7 +503,7 @@ def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
         keys = [KeyCol(b.column(k).values, b.column(k).validity,
                        _key_domain(b, k, t))
                 for k, t in zip(key_syms, key_types)]
-        states = [_input_state(b, name, op, a, st)
+        states = [_input_state(b, name, op, a, st, in_types)
                   for (name, op, a), st in zip(layout, state_types)]
         return keys, states
 
@@ -469,23 +539,30 @@ def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
             live = torch.cat([acc.live, live])
         kout, sout, out_live, n_groups = grouped_merge(kin, sin, live, cap,
                                                        engine=engine)
-        sout = _renorm_limbs(list(sout), lpairs)
-        cols = ([Column(k.values, k.validity) for k in kout]
-                + [Column(s.values, s.validity if s.op != "count_add" else None)
-                   for s in sout])
-        names = list(key_syms) + [name for name, _, _ in layout]
-        dicts = {k: b.dicts[k] for k in key_syms if k in b.dicts}
-        # string-valued min/max/arbitrary states keep the argument's
-        # dictionary
-        for name, op, a in layout:
-            if op in ("min", "max") and a.arg in b.dicts:
-                dicts[name] = b.dicts[a.arg]
-        out = Batch(names, key_types + state_types, cols, out_live, dicts)
+        out = _acc_batch(b, key_syms, key_types, layout, state_types, kout,
+                         _renorm_limbs(list(sout), lpairs), out_live)
         return out, n_groups
 
     return SimpleNamespace(layout=layout, key_syms=key_syms,
                            key_types=key_types, in_types=in_types,
                            merge_step=merge_step)
+
+
+def _acc_batch(src: Batch, key_syms, key_types, layout, state_types, kout,
+               sout, out_live) -> Batch:
+    """A merge's group table as a batch: the keys, then one column a state
+    (a count state is never NULL); string keys, and string-valued
+    min/max/arbitrary states, keep `src`'s dictionaries."""
+    cols = ([Column(k.values, k.validity) for k in kout]
+            + [Column(s.values, s.validity if s.op != "count_add" else None)
+               for s in sout])
+    names = list(key_syms) + [name for name, _, _ in layout]
+    dicts = {k: src.dicts[k] for k in key_syms if k in src.dicts}
+    for name, op, a in layout:
+        if op in ("min", "max") and a.arg in src.dicts:
+            dicts[name] = src.dicts[a.arg]
+    return Batch(names, list(key_types) + list(state_types), cols, out_live,
+                 dicts)
 
 
 def _agg_presize(node: Aggregate, ctx: ExecContext) -> int:
@@ -517,6 +594,9 @@ def _execute_aggregate(node: Aggregate, ctx: ExecContext) -> Iterator[Batch]:
             raise NotImplementedError(
                 f"aggregate {a.fn}{' distinct' if a.distinct else ''} is not "
                 "supported by presto_tpu_torch yet")
+    if any(a.fn in _SORTED_AGGS for a in node.aggs):
+        yield from _execute_materialized_aggregate(node, ctx)
+        return
     in_stream, _ = _fused_child(node.child, ctx)
     engine = _breaker_engine_choice(node, ctx)
     steps = _agg_steps(node, engine)
@@ -588,10 +668,43 @@ def _finalize_aggregate(node: Aggregate, acc: Optional[Batch], steps,
             hi = acc.column(a.symbol + "$hi")
             lo = acc.column(a.symbol + "$lo")
             cols.append(Column(lo.values, lo.validity, hi.values))
+        elif a.fn in _VARIANCE_FNS:
+            n = acc.column(a.symbol + "$cnt").values.to(torch.float64)
+            s = acc.column(a.symbol + "$sum").values
+            ss = acc.column(a.symbol + "$sumsq").values
+            pop = a.fn.endswith("_pop")
+            ok = n > (0 if pop else 1)
+            nn = torch.where(n > 0, n, 1.0)
+            denom = torch.where(ok, n if pop else n - 1, 1.0)
+            var = torch.clamp((ss - s * s / nn) / denom, min=0.0)
+            cols.append(Column(torch.sqrt(var) if a.fn.startswith("stddev")
+                               else var, ok))
+        elif a.fn in ("covar_pop", "covar_samp"):
+            n = acc.column(a.symbol + "$cnt").values.to(torch.float64)
+            sx = acc.column(a.symbol + "$sx").values
+            sy = acc.column(a.symbol + "$sy").values
+            sxy = acc.column(a.symbol + "$sxy").values
+            pop = a.fn.endswith("_pop")
+            ok = n > (0 if pop else 1)
+            nn = torch.where(n > 0, n, 1.0)
+            denom = torch.where(ok, n if pop else n - 1, 1.0)
+            cols.append(Column((sxy - sx * sy / nn) / denom, ok))
+        elif a.fn == "corr":
+            n = acc.column(a.symbol + "$cnt").values.to(torch.float64)
+            sx = acc.column(a.symbol + "$sx").values
+            sy = acc.column(a.symbol + "$sy").values
+            sxy = acc.column(a.symbol + "$sxy").values
+            vx = n * acc.column(a.symbol + "$sxx").values - sx * sx
+            vy = n * acc.column(a.symbol + "$syy").values - sy * sy
+            ok = (n > 1) & (vx > 0) & (vy > 0)
+            denom = torch.sqrt(torch.where(ok, vx * vy, 1.0))
+            cols.append(Column((n * sxy - sx * sy) / denom, ok))
         elif a.fn in ("bool_and", "bool_or"):
             c = acc.column(a.symbol)
             cols.append(Column(c.values.to(torch.bool), c.validity))
         else:
+            # count/sum/min/max/arbitrary/count_if, and the sorted
+            # aggregates, pass through
             cols.append(acc.column(a.symbol))
         names.append(a.symbol)
         types.append(a.type)
@@ -602,6 +715,169 @@ def _finalize_aggregate(node: Aggregate, acc: Optional[Batch], steps,
         live = live.clone()
         live[0] = True
     return Batch(names, types, cols, live, acc.dicts)
+
+
+def _seg_sum(x: torch.Tensor, seg: torch.Tensor, cap: int) -> torch.Tensor:
+    """Per-segment sums of x over segments [0, cap); rows of segment cap
+    (dead rows) drop out."""
+    out = torch.zeros(cap + 1, dtype=x.dtype, device=x.device)
+    return out.index_add_(0, seg, x)[:cap]
+
+
+def _seg_min(x: torch.Tensor, seg: torch.Tensor, cap: int,
+             fill: int) -> torch.Tensor:
+    out = torch.full((cap + 1,), fill, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce(0, seg, x, "amin")[:cap]
+
+
+def _sorted_group_agg(b: Batch, key_syms, a, cap: int):
+    """Per-group order-dependent aggregate over materialized input:
+    approx_percentile (exact per-group quantile, or the sketch's weighted
+    rank), max_by / min_by, and count/sum/avg DISTINCT. Sorts by
+    (deadness, group keys, order value): the group enumeration matches the
+    sort engine's grouped_merge over the same keys, so the returned arrays
+    align with its group table rows."""
+    n = b.capacity
+    dev = b.device
+    dead = (~b.live).to(torch.int32)
+    operands = [dead]
+    for k in key_syms:
+        c = b.column(k)
+        if c.validity is not None:
+            operands.append((~c.validity).to(torch.int32))
+            operands.append(torch.where(c.validity, c.values,
+                                        torch.zeros_like(c.values)))
+        else:
+            operands.append(c.values)
+    num_key_ops = len(operands)
+
+    cx = b.column(a.arg)
+    if a.fn in ("approx_percentile", "__approx_percentile_w",
+                "count_distinct", "sum_distinct", "avg_distinct"):
+        ov = cx.valid_mask()
+        sortval = torch.where(ov, cx.values,
+                              _minmax_identity(cx.values.dtype, "min"))
+    else:
+        cy = b.column(a.arg2)
+        ov = cy.valid_mask()
+        # max_by takes a run's last row, min_by its first; a NULL order
+        # value sorts as +inf for max_by and -inf for min_by, as in the
+        # JAX package (so a group's NULL-valued row can be the one taken)
+        sortval = torch.where(ov, cy.values, _minmax_identity(
+            cy.values.dtype, "min" if a.fn == "max_by" else "max"))
+    operands.append(sortval)
+
+    perm = lex_sort_permutation(operands)
+    sorted_ops = [op[perm] for op in operands]
+    sdead = sorted_ops[0]
+    change = torch.zeros(n, dtype=torch.bool, device=dev)
+    change[0] = True
+    for sk in sorted_ops[:num_key_ops]:
+        change[1:] |= sk[1:] != sk[:-1]
+    seg = torch.cumsum(change.to(torch.int64), 0) - 1
+    seg = torch.where(sdead == 1, cap, seg)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    start = _seg_min(idx, seg, cap, n)
+    cnt = _seg_sum(torch.ones(n, dtype=torch.int64, device=dev), seg, cap)
+    ov_sorted = ov[perm]
+    cntv = _seg_sum(ov_sorted.to(torch.int64), seg, cap)
+    valid = cntv > 0
+
+    if a.fn in ("count_distinct", "sum_distinct", "avg_distinct"):
+        # DISTINCT accumulators (MarkDistinct analog): after the (keys,
+        # value) sort, the first row of each equal-value run inside a
+        # segment carries the value; every other row contributes zero
+        sv = cx.values[perm]
+        prev_same = torch.zeros(n, dtype=torch.bool, device=dev)
+        prev_same[1:] = (sv[1:] == sv[:-1]) & ~change[1:]
+        first_distinct = ov_sorted & (sdead == 0) & ~prev_same
+        dcount = _seg_sum(first_distinct.to(torch.int64), seg, cap)
+        if a.fn == "count_distinct":
+            return dcount, None
+        acc_dtype = sv.dtype if sv.is_floating_point() else torch.int64
+        contrib = torch.where(first_distinct, sv.to(acc_dtype),
+                              torch.zeros((), dtype=acc_dtype, device=dev))
+        dsum = _seg_sum(contrib, seg, cap)
+        if a.fn == "sum_distinct":
+            return dsum, dcount > 0
+        t = b.type_of(a.arg)
+        num = unscale(dsum.to(torch.float64),
+                      t.scale if isinstance(t, DecimalType) else 0)
+        return num / torch.clamp(dcount, min=1).to(torch.float64), dcount > 0
+    if a.fn == "__approx_percentile_w":
+        # weighted-rank selection over the sketch's bucket rows: the value
+        # is the bucket minimum whose running count first reaches
+        # ceil(p * total) (the approx_percentile lowering's last step)
+        p = float(a.param)
+        w = b.column(a.arg2).values.to(torch.int64)[perm]
+        w = torch.where(ov_sorted & (sdead == 0), w, 0)
+        cs = torch.cumsum(w, 0)
+        run_start = torch.cummax(torch.where(change, idx, 0), 0).values
+        cum = cs - cs[run_start] + w[run_start]
+        totals = _seg_sum(w, seg, cap)
+        thresh = torch.clamp(torch.ceil(p * totals.to(torch.float64))
+                             .to(torch.int64), min=1)
+        row_thresh = torch.cat([thresh, torch.zeros(1, dtype=torch.int64,
+                                                    device=dev)])[
+            torch.clamp(seg, 0, cap)]
+        candidate = (cum >= row_thresh) & (w > 0)
+        pick = _seg_min(torch.where(candidate, idx, n), seg, cap, n)
+        rows = perm[torch.clamp(pick, 0, n - 1)]
+        return cx.values[rows], totals > 0
+    if a.fn == "approx_percentile":
+        # exact quantile: index ceil(p * n_valid) - 1 of the group's sorted
+        # valid values, placed as the JAX package places it
+        p = float(a.param)
+        k = torch.ceil(p * cntv.to(torch.float64)).to(torch.int64) - 1
+        k = torch.minimum(torch.clamp(k, min=0),
+                          torch.clamp(cntv - 1, min=0))
+        pos = torch.clamp(start + (cnt - cntv) + k, 0, n - 1)
+    elif a.fn == "max_by":
+        pos = torch.clamp(start + cnt - 1, 0, n - 1)
+    else:
+        pos = torch.clamp(start, 0, n - 1)
+    rows = perm[pos]
+    if cx.validity is not None:
+        valid = valid & cx.validity[rows]
+    return cx.values[rows], valid
+
+
+def _execute_materialized_aggregate(node: Aggregate,
+                                    ctx: ExecContext) -> Iterator[Batch]:
+    """Aggregates with order-dependent, non-mergeable state
+    (approx_percentile, max_by/min_by, count/sum/avg DISTINCT beside other
+    aggregates): materialize the input and compute per group over one
+    global sort; the decomposable aggregates beside them merge in the same
+    pass on the sort engine."""
+    in_stream, chain = _fused_child(node.child, ctx)
+    in_types = dict(node.child.output)
+    key_syms = node.group_keys
+    key_types = [in_types[k] for k in key_syms]
+    decomp = [a for a in node.aggs if a.fn not in _SORTED_AGGS]
+    ordered = [a for a in node.aggs if a.fn in _SORTED_AGGS]
+    layout = agg_state_layout(decomp, in_types)
+    state_types = _layout_state_types(layout, in_types)
+    steps = SimpleNamespace(key_syms=key_syms, key_types=key_types,
+                            in_types=in_types)
+    full = _collect_concat(chain(b) for b in in_stream)
+    if full is None:
+        yield _finalize_aggregate(node, None, steps, ctx.device)
+        return
+    cap = full.capacity  # groups <= live rows
+    keys = [KeyCol(full.column(k).values, full.column(k).validity)
+            for k in key_syms]
+    states = [_input_state(full, name, op, a, st, in_types)
+              for (name, op, a), st in zip(layout, state_types)]
+    kout, sout, out_live, _ = grouped_merge(keys, states, full.live, cap)
+    acc = _acc_batch(full, key_syms, key_types, layout, state_types, kout,
+                     _renorm_limbs(list(sout), limb_pairs(layout)), out_live)
+    for a in ordered:
+        vals, valid = _sorted_group_agg(full, key_syms, a, cap)
+        acc = acc.with_column(
+            a.symbol, a.type,
+            Column(vals.to(torch_dtype(a.type.dtype)), valid),
+            dictionary=full.dicts.get(a.arg))
+    yield _finalize_aggregate(node, acc, steps, ctx.device)
 
 
 # -- batches ------------------------------------------------------------------
@@ -973,6 +1249,328 @@ def _execute_semijoin(node: SemiJoin, ctx: ExecContext) -> Iterator[Batch]:
                 break
         keep = ~exists if node.negated else exists
         yield pb.with_live(pb.live & keep)
+
+
+# -- nested-loop join -----------------------------------------------------------
+
+
+def _column_map(c: Column, f) -> Column:
+    return Column(f(c.values), None if c.validity is None else f(c.validity),
+                  None if c.hi is None else f(c.hi))
+
+
+def _execute_nljoin(node: NestedLoopJoin, ctx: ExecContext) -> Iterator[Batch]:
+    """Nested-loop inner join (cross product / non-equi ON). Each output
+    batch is one probe batch crossed with one fixed-size chunk of the
+    compacted build side (probe row i, build row j at i * chunk + j), with
+    the residual predicate applied to it."""
+    probe_stream, chain = _fused_child(node.left, ctx)
+    build = _collect_concat(execute_node(node.right, ctx))
+    if build is None:
+        return
+    build = compact(build)  # live rows to the front
+    nb = build.num_live()
+    if nb == 0:
+        return
+    pred = (compile_predicate(node.residual)
+            if node.residual is not None else None)
+    out_names = [s for s, _ in node.left.output] + [
+        s for s, _ in node.right.output]
+    out_types = [t for _, t in node.left.output] + [
+        t for _, t in node.right.output]
+    for raw in probe_stream:
+        pb = chain(raw)
+        np_cap = pb.capacity
+        # <= 512 build rows an output batch, about 2^21 output rows at
+        # most; powers of two that divide the build capacity, so every
+        # chunk lies inside it (the JAX package's sizes)
+        c = min(512, max(1, (1 << 21) // max(np_cap, 1)), build.capacity)
+        left = [_column_map(col, lambda a: torch.repeat_interleave(a, c, 0))
+                for col in pb.columns]
+        plive = torch.repeat_interleave(pb.live, c, 0)
+        dicts = dict(build.dicts)
+        dicts.update(pb.dicts)
+        for off in range(0, nb, c):
+            right = [_column_map(col, lambda a: a[off:off + c].repeat(np_cap))
+                     for col in build.columns]
+            live = plive & build.live[off:off + c].repeat(np_cap)
+            out = Batch(out_names, out_types, left + right, live, dicts)
+            if pred is not None:
+                out = out.with_live(out.live & pred(out))
+            yield out
+
+
+# -- set operations -------------------------------------------------------------
+
+
+def _align_setop_dicts(node: SetOp, batches: List[Batch]) -> List[Batch]:
+    """Re-encode string columns of all batches against shared merged
+    dictionaries so code equality is string equality; a side whose string
+    column carries no dictionary (all NULL) gets the shared one too."""
+    out = _unify_batch_dicts(batches)
+    for i, t in enumerate(node.types):
+        if not t.is_string:
+            continue
+        name = node.symbols[i]
+        ds = [b.dicts[name] for b in out if b.dicts.get(name) is not None]
+        if ds:
+            out = [b if name in b.dicts else
+                   Batch(b.names, b.types, b.columns, b.live,
+                         {**b.dicts, name: ds[0]})
+                   for b in out]
+    return out
+
+
+def _null_safe_encode(b: Batch) -> Tuple[Batch, List[str]]:
+    """Rows as join keys with NULLs-equal semantics (SQL DISTINCT and set
+    operations treat NULL = NULL): every column contributes a zero-filled
+    value key plus a validity key, so build_side/probe never drop a NULL
+    and NULL cells compare equal. Long decimals add their hi limb."""
+    names, types, cols = [], [], []
+    for i, c in enumerate(b.columns):
+        base = f"k{i}"
+        v = (c.values if c.validity is None
+             else torch.where(c.validity, c.values, torch.zeros_like(c.values)))
+        names.append(base)
+        types.append(b.types[i])
+        cols.append(Column(v, None))
+        names.append(base + "$v")
+        types.append(BIGINT)
+        cols.append(Column(c.valid_mask().to(torch.int64), None))
+        if c.hi is not None:
+            hv = (c.hi if c.validity is None
+                  else torch.where(c.validity, c.hi, torch.zeros_like(c.hi)))
+            names.append(base + "$hi")
+            types.append(BIGINT)
+            cols.append(Column(hv, None))
+    return Batch(names, types, cols, b.live, {}), names
+
+
+def _distinct_rows(b: Batch) -> Batch:
+    """Keep one row per distinct tuple (NULLs equal): sort by every
+    null-safe key, keep the first row of each run. Full rows survive
+    (validity and hi limbs), unlike grouped_merge, which rebuilds
+    columns."""
+    enc, _ = _null_safe_encode(b)
+    operands = [(~b.live).to(torch.int32)] + [c.values for c in enc.columns]
+    perm = lex_sort_permutation(operands)
+    first = torch.zeros(b.capacity, dtype=torch.bool, device=b.device)
+    first[0] = True
+    for op in operands:
+        sk = op[perm]
+        first[1:] |= sk[1:] != sk[:-1]
+    out = permute_batch(b, perm)
+    return out.with_live(out.live & first)
+
+
+def _execute_setop(node: SetOp, ctx: ExecContext) -> Iterator[Batch]:
+    """UNION [ALL] / INTERSECT / EXCEPT: UNION ALL streams both sides;
+    UNION sorts the rows once and keeps the first of each run; INTERSECT
+    and EXCEPT probe the left side's distinct rows against a table of the
+    right side's rows (the sort engine's unique probe over the null-safe
+    encoding); the ALL forms count rows on the host."""
+    syms = node.symbols
+
+    def renamed(child):
+        for b in execute_node(child, ctx):
+            yield b.rename(syms)
+
+    if node.all and node.kind == "union":
+        yield from renamed(node.left)
+        yield from renamed(node.right)
+        return
+
+    lb = _collect_concat(renamed(node.left))
+    rb = _collect_concat(renamed(node.right))
+    if node.kind == "union":
+        sides = [b for b in (lb, rb) if b is not None]
+        if not sides:
+            return
+        sides = _align_setop_dicts(node, sides)
+        merged = sides[0] if len(sides) == 1 else _concat2(sides[0], sides[1])
+        yield _distinct_rows(merged)
+        return
+
+    # INTERSECT / EXCEPT
+    if lb is None:
+        return
+    if rb is None:
+        if node.kind == "except":
+            yield lb if node.all else _distinct_rows(lb)
+        return
+    lb, rb = _align_setop_dicts(node, [lb, rb])
+    if node.all:
+        yield _multiset_setop(node, lb, rb)
+        return
+    ld = _distinct_rows(lb)
+    lenc, keys = _null_safe_encode(ld)
+    renc, _ = _null_safe_encode(rb)
+    table = build_side(renc, tuple(keys))
+    _, matched = probe_unique(table, lenc, tuple(keys), tuple(keys))
+    keep = matched if node.kind == "intersect" else ~matched
+    yield ld.with_live(ld.live & keep)
+
+
+def _multiset_setop(node: SetOp, lb: Batch, rb: Batch) -> Batch:
+    """INTERSECT ALL / EXCEPT ALL: per distinct left row, min(cl, cr) or
+    max(cl - cr, 0) copies. The rows are counted on the host over their
+    null-safe encodings (copied there, as the JAX package does), then one
+    device gather replicates the chosen row indices."""
+    live_l = lb.live.cpu().numpy()
+    orig_idx = np.nonzero(live_l)[0]
+    lenc, _ = _null_safe_encode(lb)
+    renc, _ = _null_safe_encode(rb)
+
+    def rows_of(enc: Batch, live):
+        cols = [c.values.cpu().numpy()[live] for c in enc.columns]
+        return (np.stack(cols, axis=1) if cols
+                else np.zeros((int(live.sum()), 0)))
+
+    lrows = rows_of(lenc, live_l)
+    rrows = rows_of(renc, rb.live.cpu().numpy())
+    uniq, first_pos, lcnt = np.unique(lrows, axis=0, return_index=True,
+                                      return_counts=True)
+    rcounts: dict = {}
+    for row in map(tuple, rrows):
+        rcounts[row] = rcounts.get(row, 0) + 1
+    reps = np.empty(len(uniq), np.int64)
+    for i, row in enumerate(map(tuple, uniq)):
+        cr = rcounts.get(row, 0)
+        reps[i] = (min(int(lcnt[i]), cr) if node.kind == "intersect"
+                   else max(int(lcnt[i]) - cr, 0))
+    out_idx = np.repeat(orig_idx[first_pos], reps)
+    n = len(out_idx)
+    cap = round_up_capacity(max(n, 1))
+    idx = np.zeros(cap, np.int64)
+    idx[:n] = out_idx
+    live = np.zeros(cap, bool)
+    live[:n] = True
+    didx = torch.as_tensor(idx, device=lb.device)
+    return Batch(lb.names, lb.types, [c.gather(didx) for c in lb.columns],
+                 torch.as_tensor(live, device=lb.device), lb.dicts)
+
+
+# -- window -----------------------------------------------------------------------
+
+
+def _execute_window(node: Window, ctx: ExecContext) -> Iterator[Batch]:
+    """Pipeline breaker: materialize the input, sort once by (partition
+    keys, order keys), compute every function of the node's spec as vector
+    ops (ops/window.py), emit one batch with the window columns appended
+    (reference: WindowOperator.java:47 over a PagesIndex)."""
+    acc = _collect_concat(execute_node(node.child, ctx))
+    if acc is None:
+        return
+    yield _window_compute(node, acc)
+
+
+def _window_compute(node: Window, b: Batch) -> Batch:
+    from presto_tpu_torch.ops import window as W
+
+    child_types = dict(node.child.output)
+    keys = [SortKey(b.column(pk).values, b.column(pk).validity)
+            for pk in node.partition_keys]
+    for oi in node.order_items:
+        c = b.column(oi.symbol)
+        nf = oi.nulls_first
+        if nf is None:
+            nf = not oi.ascending  # SQL default: NULLS LAST for ASC
+        keys.append(SortKey(c.values, c.validity, not oi.ascending, nf))
+    sb = permute_batch(b, sort_permutation(keys, b.live))
+    part_cols = [(sb.column(pk).values, sb.column(pk).validity)
+                 for pk in node.partition_keys]
+    order_cols = [(sb.column(oi.symbol).values, sb.column(oi.symbol).validity)
+                  for oi in node.order_items]
+    wk = W.window_keys(part_cols, order_cols, sb.live)
+
+    rng_kw = {"order_vals": None}
+    if (any(f.frame and f.frame.startswith("range:") for f in node.funcs)
+            and node.order_items):
+        # RANGE value offsets: the single order key, ascending-ized (negated
+        # for DESC), in its native domain — int64 for integral, decimal and
+        # date keys, so boundary compares are exact; decimals compare
+        # unscaled with the offset scaled by 10^scale
+        oi = node.order_items[0]
+        oc = sb.column(oi.symbol)
+        ot = child_types.get(oi.symbol)
+        ov = oc.values
+        ov = (ov.to(torch.float64) if ov.is_floating_point()
+              else ov.to(torch.int64))
+        if not oi.ascending:
+            ov = -ov  # NaN survives negation; the bounds mask it
+        nf = oi.nulls_first
+        if nf is None:
+            nf = not oi.ascending
+        rng_kw = {"order_vals": ov, "order_valid": oc.validity,
+                  "nulls_first": nf,
+                  "offset_scale": (10 ** ot.scale
+                                   if isinstance(ot, DecimalType) else 1)}
+
+    def as_double(vals, arg):
+        # avg computes in double; decimals are unscaled integers
+        t = child_types.get(arg)
+        return unscale(vals.to(torch.float64),
+                       t.scale if isinstance(t, DecimalType) else 0)
+
+    out = sb
+    for f in node.funcs:
+        bounded = f.frame is not None and f.frame.startswith(("rows:",
+                                                              "range:"))
+        if f.fn in ("row_number", "rank", "dense_rank", "percent_rank",
+                    "cume_dist"):
+            v, valid = getattr(W, f.fn)(wk)
+        elif f.fn == "ntile":
+            v, valid = W.ntile(wk, f.param)
+        elif f.fn in ("lag", "lead"):
+            c = sb.column(f.arg)
+            v, valid = getattr(W, f.fn)(
+                wk, c.values, c.validity,
+                f.param if f.param is not None else 1, f.default)
+        elif f.fn in ("first_value", "last_value", "nth_value"):
+            c = sb.column(f.arg)
+            if bounded:
+                v, valid = W.value_over_frame(
+                    wk, f.fn, c.values, c.validity, f.frame,
+                    f.param if f.param is not None else 1, **rng_kw)
+            elif f.fn == "nth_value":
+                v, valid = W.nth_value(wk, c.values, c.validity, f.param)
+            else:
+                v, valid = getattr(W, f.fn)(wk, c.values, c.validity)
+        elif f.fn in ("sum", "avg", "min", "max", "count"):
+            if not node.order_items:
+                frame = "whole"
+            elif f.frame == "rows_unbounded_current":
+                frame = "rows"
+            else:
+                frame = "range"
+            if f.arg is None:
+                vals, validity, is_float = (
+                    torch.zeros(sb.capacity, dtype=torch.int64,
+                                device=sb.device), None, False)
+                fn = "count"
+            else:
+                c = sb.column(f.arg)
+                vals, validity = c.values, c.validity
+                is_float = vals.is_floating_point()
+                fn = f.fn
+                if fn == "avg" and not is_float:
+                    vals, is_float = as_double(vals, f.arg), True
+            if bounded:
+                v, valid = W.agg_window_bounded(wk, fn, vals, validity,
+                                                f.frame, is_float, **rng_kw)
+            else:
+                v, valid = W.agg_window(wk, fn, vals, validity, frame,
+                                        is_float)
+        else:
+            raise NotImplementedError(
+                f"window function {f.fn} is not supported by "
+                "presto_tpu_torch yet")
+        dict_ = (sb.dict_of(f.arg)
+                 if f.arg is not None and f.type.is_string else None)
+        out = out.with_column(f.symbol, f.type,
+                              Column(v.to(torch_dtype(f.type.dtype)), valid),
+                              dictionary=dict_)
+    return out
 
 
 # -- sort -----------------------------------------------------------------------

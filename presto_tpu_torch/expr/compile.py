@@ -16,9 +16,17 @@ device does one gather either way.
 
 Lowered: comparisons (numeric and date; string equality against a
 literal), BETWEEN, IN, AND/OR/NOT, IS [NOT] NULL, COALESCE, NULLIF, IF
-(CASE), LIKE with its escape, substr, year/month/day, CAST among numeric,
-decimal and date, and exact decimal arithmetic: what the 22 TPC-H queries
-use. Any other function raises NotImplementedError naming it.
+(CASE), LIKE with its escape, substr, CAST among numeric, decimal and
+date, exact decimal arithmetic, the numeric functions (abs, negation,
+sqrt/exp/ln/floor/ceil/... and sign/truncate, atan2, greatest/least,
+round half away from zero, power), bitwise_*, is_nan/is_finite/
+is_infinite, from_unixtime/to_unixtime, width_bucket, and the date and
+time parts and arithmetic (year/quarter/month/day, day_of_week,
+day_of_year, the time-of-day parts, date_add, date_trunc, date_diff).
+Any other function raises NotImplementedError naming it.
+
+Division of a float by a plan-time constant multiplies by its reciprocal,
+as XLA compiles the JAX package's division, so both round alike.
 """
 
 from __future__ import annotations
@@ -467,24 +475,310 @@ def _eval_call(e: Call, ctx: CompileContext):
         return (torch.as_tensor(remap, device=ctx.device)[
             codes.to(torch.int64) + 1], valid)
 
-    # ---- dates -----------------------------------------------------------
-    if fn in ("year", "month", "day"):
-        v, valid = _eval_arg(e.args[0], ctx)
-        if e.args[0].type.name == "timestamp":
-            v = torch.div(v.to(torch.int64), 86_400_000_000,
-                          rounding_mode="floor")
-        y, m, d = _civil_from_days(v)
-        return {"year": y, "month": m, "day": d}[fn], valid
-
     if fn == "cast":
         return _eval_cast(e, ctx)
 
     # ---- arithmetic ------------------------------------------------------
     if fn in ("add", "sub", "mul", "div", "mod"):
         return _eval_arith(e, ctx)
+    if fn == "neg":
+        v, valid = _eval_arg(e.args[0], ctx)
+        return -v, valid
+    if fn == "abs":
+        v, valid = _eval_arg(e.args[0], ctx)
+        return torch.abs(v), valid
+    if fn in _MATH or fn in _ROUNDING or fn in _FLOAT_TESTS:
+        return _eval_math(e, ctx)
+    if fn == "round":
+        return _eval_round(e, ctx)
+    if fn in ("atan2", "power", "greatest", "least"):
+        return _eval_binary_math(e, ctx)
+    if fn in _BITWISE or fn == "bitwise_not":
+        return _eval_bitwise(e, ctx)
+    if fn in _TIME_FNS:
+        return _eval_time(e, ctx)
+    if fn in _DATE_FNS:
+        return _eval_date(e, ctx)
+    if fn == "__qsk_bucket":
+        return _qsk_bucket(e, ctx)
 
     raise NotImplementedError(
         f"function {fn} is not supported by presto_tpu_torch yet")
+
+
+# ---------------------------------------------------------------------------
+# numeric functions
+
+
+def _cbrt(v: torch.Tensor) -> torch.Tensor:
+    return torch.sign(v) * torch.pow(torch.abs(v), 1.0 / 3.0)
+
+
+_MATH = {
+    "sqrt": torch.sqrt, "exp": torch.exp, "ln": torch.log,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "log2": torch.log2, "log10": torch.log10, "cbrt": _cbrt,
+    "degrees": torch.rad2deg, "radians": torch.deg2rad, "sign": torch.sign,
+}
+# integer-valued on integers: identities there
+_ROUNDING = {"floor": torch.floor, "ceil": torch.ceil, "truncate": torch.trunc}
+_FLOAT_TESTS = {"is_nan": torch.isnan, "is_finite": torch.isfinite,
+                "is_infinite": torch.isinf}
+
+
+def _eval_math(e: Call, ctx):
+    fn = e.fn
+    v, valid = _eval_arg(e.args[0], ctx)
+    if fn in _FLOAT_TESTS:
+        return _FLOAT_TESTS[fn](v.to(torch.float64)), valid
+    v = v.to(torch_dtype(e.type.dtype))
+    if fn in _MATH:
+        return _MATH[fn](v), valid
+    return (_ROUNDING[fn](v) if v.is_floating_point() else v), valid
+
+
+def _eval_round(e: Call, ctx):
+    """SQL ROUND is half away from zero (Presto MathFunctions.round), not
+    torch.round's half to even."""
+    v, valid = _eval_arg(e.args[0], ctx)
+    digits = int(e.args[1].value) if len(e.args) > 1 else 0
+    if isinstance(e.type, DecimalType):
+        src_scale = e.args[0].type.scale
+        if digits >= src_scale:
+            return v, valid
+        f = 10 ** (src_scale - digits)
+        return _div_half_away(v, f) * f, valid
+    if len(e.args) > 1:
+        f = 10.0 ** digits
+        return _round_half_away(v * f) * (1.0 / f), valid
+    return _round_half_away(v), valid
+
+
+def _eval_binary_math(e: Call, ctx):
+    fn = e.fn
+    dt = torch_dtype(e.type.dtype)
+    out, valid = _eval_arg(e.args[0], ctx)
+    out = out.to(dt)
+    if fn in ("greatest", "least"):
+        # SQL: NULL if any argument is NULL (Presto MathFunctions.greatest)
+        op = torch.maximum if fn == "greatest" else torch.minimum
+        for a in e.args[1:]:
+            av, avalid = _eval_arg(a, ctx)
+            out = op(out, av.to(dt))
+            valid = _and_valid(valid, avalid)
+        return out, valid
+    b, bvalid = _eval_arg(e.args[1], ctx)
+    op = torch.atan2 if fn == "atan2" else torch.pow
+    return op(out, b.to(dt)), _and_valid(valid, bvalid)
+
+
+_BITWISE = {"bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_left_shift",
+            "bitwise_right_shift"}
+
+
+def _eval_bitwise(e: Call, ctx):
+    """On int64; a shift by less than 0 or more than 63 bits gives 0, and
+    the right shift is logical, as XLA's shifts are."""
+    if e.fn == "bitwise_not":
+        v, valid = _eval_arg(e.args[0], ctx)
+        return ~v.to(torch.int64), valid
+    a, avalid = _eval_arg(e.args[0], ctx)
+    b, bvalid = _eval_arg(e.args[1], ctx)
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    valid = _and_valid(avalid, bvalid)
+    if e.fn == "bitwise_and":
+        return a & b, valid
+    if e.fn == "bitwise_or":
+        return a | b, valid
+    if e.fn == "bitwise_xor":
+        return a ^ b, valid
+    a, b = torch.broadcast_tensors(a, b)
+    out_of_range = (b < 0) | (b > 63)
+    bb = torch.clamp(b, 0, 63)
+    if e.fn == "bitwise_left_shift":
+        out = a << bb
+    else:
+        # logical: clear the bits the arithmetic shift copied the sign into
+        mask = torch.where(bb == 0, -1, (1 << (64 - torch.clamp(bb, min=1)))
+                           - 1)
+        out = (a >> bb) & mask
+    return torch.where(out_of_range, 0, out), valid
+
+
+# ---------------------------------------------------------------------------
+# time
+
+
+_TIME_FNS = {"from_unixtime", "to_unixtime", "width_bucket", "__time_hour",
+             "__time_minute", "__time_second"}
+
+
+def _eval_time(e: Call, ctx):
+    fn = e.fn
+    v, valid = _eval_arg(e.args[0], ctx)
+    if fn == "from_unixtime":
+        return (v.to(torch.float64) * 1e6).to(torch.int64), valid
+    if fn == "to_unixtime":
+        return v.to(torch.float64) * (1.0 / 1e6), valid
+    if fn == "width_bucket":
+        lo = float(e.args[1].value)
+        hi = float(e.args[2].value)
+        nb = int(e.args[3].value)
+        x = v.to(torch.float64)
+        bucket = torch.floor((x - lo) * (1.0 / (hi - lo)) * nb).to(
+            torch.int64) + 1
+        return torch.clamp(bucket, 0, nb + 1), valid
+    # TIME (micros of the day) and TIMESTAMP (micros since the epoch) both
+    # reduce mod one day
+    tod = torch.remainder(v.to(torch.int64), 86_400_000_000)
+    if fn == "__time_hour":
+        return torch.div(tod, 3_600_000_000, rounding_mode="floor"), valid
+    if fn == "__time_minute":
+        return torch.remainder(torch.div(tod, 60_000_000,
+                                         rounding_mode="floor"), 60), valid
+    return torch.remainder(torch.div(tod, 1_000_000, rounding_mode="floor"),
+                           60), valid
+
+
+# ---------------------------------------------------------------------------
+# dates
+
+
+def _fdiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _days_from_civil_vec(y, m, d):
+    """Inverse of _civil_from_days (the same Hinnant algorithm)."""
+    y = y - (m <= 2).to(y.dtype)
+    era = _fdiv(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    doy = _fdiv(153 * (m + torch.where(m > 2, -3, 9)) + 2, 5) + d - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return (era * 146097 + doe - 719468).to(torch.int32)
+
+
+_MONTH_DAYS = (31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31)
+
+
+def _days_in_month(y, m):
+    base = torch.tensor(_MONTH_DAYS, dtype=torch.int64, device=m.device)[
+        (m - 1).to(torch.int64)]
+    leap = (((torch.remainder(y, 4) == 0) & (torch.remainder(y, 100) != 0))
+            | (torch.remainder(y, 400) == 0))
+    return torch.where((m == 2) & leap, 29, base)
+
+
+_DATE_FNS = {"year", "month", "day", "quarter", "day_of_week", "day_of_year",
+             "date_add_days", "date_trunc", "date_diff", "date_add_unit"}
+
+
+def _as_days(a: RowExpression, v: torch.Tensor) -> torch.Tensor:
+    """TIMESTAMP operands (micros since the epoch) reduce to civil days;
+    DATE is already days."""
+    if a.type.name == "timestamp":
+        return _fdiv(v.to(torch.int64), 86_400_000_000)
+    return v.to(torch.int64)
+
+
+def _eval_date(e: Call, ctx):
+    fn = e.fn
+    if fn in ("date_trunc", "date_diff", "date_add_unit"):
+        unit = str(e.args[0].value).lower()
+        return {"date_trunc": _date_trunc, "date_diff": _date_diff,
+                "date_add_unit": _date_add_unit}[fn](e, unit, ctx)
+    v, valid = _eval_arg(e.args[0], ctx)
+    if fn == "date_add_days":
+        dv, dvalid = _eval_arg(e.args[1], ctx)
+        return v + dv.to(v.dtype), _and_valid(valid, dvalid)
+    days = _as_days(e.args[0], v)
+    if fn == "day_of_week":
+        # ISO: 1 = Monday ... 7 = Sunday; epoch day 0 (1970-01-01) is a
+        # Thursday
+        return torch.remainder(days + 3, 7) + 1, valid
+    y, m, d = _civil_from_days(days)
+    if fn == "day_of_year":
+        return days - _days_from_civil_vec(y, torch.ones_like(m), 1) + 1, valid
+    if fn == "quarter":
+        return _fdiv(m - 1, 3) + 1, valid
+    return {"year": y, "month": m, "day": d}[fn], valid
+
+
+def _date_trunc(e: Call, unit: str, ctx):
+    v, valid = _eval_arg(e.args[1], ctx)
+    days = v.to(torch.int64)
+    if unit == "day":
+        return days.to(torch.int32), valid
+    if unit == "week":
+        return (days - torch.remainder(days + 3, 7)).to(torch.int32), valid
+    y, m, _ = _civil_from_days(days)
+    one = torch.ones_like(m)
+    if unit == "month":
+        return _days_from_civil_vec(y, m, 1), valid
+    if unit == "quarter":
+        return _days_from_civil_vec(y, _fdiv(m - 1, 3) * 3 + 1, 1), valid
+    if unit == "year":
+        return _days_from_civil_vec(y, one, 1), valid
+    raise NotImplementedError(f"date_trunc unit {unit}")
+
+
+def _date_diff(e: Call, unit: str, ctx):
+    a, avalid = _eval_arg(e.args[1], ctx)
+    b, bvalid = _eval_arg(e.args[2], ctx)
+    valid = _and_valid(avalid, bvalid)
+    a64, b64 = a.to(torch.int64), b.to(torch.int64)
+    if unit == "day":
+        return b64 - a64, valid
+    if unit == "week":
+        return _fdiv(b64 - a64, 7), valid
+    ya, ma, da = _civil_from_days(a64)
+    yb, mb, db = _civil_from_days(b64)
+    months = (yb * 12 + mb) - (ya * 12 + ma)
+    # truncate toward zero on the day-of-month remainder
+    months = months - ((months > 0) & (db < da)).to(torch.int64)
+    months = months + ((months < 0) & (db > da)).to(torch.int64)
+    if unit == "month":
+        return months, valid
+    if unit == "quarter":
+        return _fdiv(months, 3), valid
+    if unit == "year":
+        return _fdiv(months, 12), valid
+    raise NotImplementedError(f"date_diff unit {unit}")
+
+
+def _date_add_unit(e: Call, unit: str, ctx):
+    n, nvalid = _eval_arg(e.args[1], ctx)
+    v, valid = _eval_arg(e.args[2], ctx)
+    valid = _and_valid(valid, nvalid)
+    days = v.to(torch.int64)
+    n = n.to(torch.int64)
+    if unit == "day":
+        return (days + n).to(torch.int32), valid
+    if unit == "week":
+        return (days + 7 * n).to(torch.int32), valid
+    mult = {"month": 1, "quarter": 3, "year": 12}.get(unit)
+    if mult is None:
+        raise NotImplementedError(f"date_add unit {unit}")
+    y, m, d = _civil_from_days(days)
+    total = y * 12 + (m - 1) + n * mult
+    y2 = _fdiv(total, 12)
+    m2 = torch.remainder(total, 12) + 1
+    d2 = torch.minimum(d, _days_in_month(y2, m2))
+    return _days_from_civil_vec(y2, m2, d2), valid
+
+
+def _qsk_bucket(e: Call, ctx):
+    """approx_percentile's sketch bucket: the monotone IEEE-754 integer
+    encoding of x as float64, its top 24 bits (sign, exponent and 12
+    mantissa bits), with -0.0 as +0.0."""
+    v, valid = _eval_arg(e.args[0], ctx)
+    x = v.to(torch.float64)
+    x = torch.where(x == 0.0, 0.0, x)
+    bits = x.view(torch.int64)
+    flip = torch.where(bits < 0, -1, torch.iinfo(torch.int64).min)
+    return ((bits ^ flip) >> 40) & ((1 << 24) - 1), valid
 
 
 def _numeric_align(lv: torch.Tensor, rv: torch.Tensor):

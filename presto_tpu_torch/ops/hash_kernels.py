@@ -339,36 +339,32 @@ def join_insert(slot0: torch.Tensor, live: torch.Tensor,
 
 
 def join_probe_plain(slot0, pkeys, plive, slot_row, bkeys, fanout: int):
-    """Serial probe: each live row walks its chain to the first empty slot,
-    recording the first `fanout` verified matches and counting them all."""
+    """The serial probe's result, walked in lockstep: every live row steps
+    along its chain until its first empty slot, recording the first
+    `fanout` verified matches in chain order and counting them all."""
     tcap = slot_row.shape[0]
     mask = tcap - 1
     n = slot0.shape[0]
-    pk = list(zip(*pkeys.tolist())) if pkeys.shape[0] else [()] * n
-    bk = (list(zip(*bkeys.tolist())) if bkeys.shape[0]
-          else [()] * bkeys.shape[1])
-    srow = slot_row.tolist()
-    mm = [[-1] * fanout for _ in range(n)]
-    cnt = [0] * n
-    ovf = 0
-    for i, (s0, lv) in enumerate(zip(slot0.tolist(), plive.tolist())):
-        if not lv:
-            continue
-        ki = pk[i]
-        c = 0
-        for j in range(tcap):
-            r = srow[(s0 + j) & mask]
-            if r < 0:
-                break
-            if bk[r] == ki:
-                if c < fanout:
-                    mm[i][c] = r
-                c += 1
-        cnt[i] = c
-        ovf += c > fanout
-    return (torch.tensor(mm, dtype=torch.int32).reshape(n, fanout),
-            torch.tensor(cnt, dtype=torch.int32),
-            torch.tensor(ovf, dtype=torch.int32))
+    mm = torch.full((n, fanout), -1, dtype=torch.int32)
+    cnt = torch.zeros(n, dtype=torch.int32)
+    rows = torch.nonzero(plive).flatten()
+    s0 = slot0[rows].to(torch.int64)
+    c = torch.zeros(rows.shape[0], dtype=torch.int32)
+    srow = slot_row.to(torch.int64)
+    for j in range(tcap):
+        if rows.shape[0] == 0:
+            break
+        r = srow[(s0 + j) & mask]
+        on = r >= 0
+        rows, s0, c, r = rows[on], s0[on], c[on], r[on]
+        hit = torch.ones(rows.shape[0], dtype=torch.bool)
+        for kp in range(pkeys.shape[0]):
+            hit &= bkeys[kp][r] == pkeys[kp][rows]
+        rec = hit & (c < fanout)
+        mm[rows[rec], c[rec].to(torch.int64)] = r[rec].to(torch.int32)
+        c = c + hit.to(torch.int32)
+        cnt[rows] = c
+    return mm, cnt, (cnt > fanout).sum().to(torch.int32)
 
 
 def _join_probe_cuda(slot0, pkeys, plive, slot_row, bkeys, fanout: int):

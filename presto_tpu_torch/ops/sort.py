@@ -52,6 +52,11 @@ def lex_sort_permutation(operands: Sequence[torch.Tensor]) -> torch.Tensor:
     for op in reversed(operands):
         if op.dtype == torch.bool:
             op = op.to(torch.int32)
+        elif op.is_floating_point():
+            # the JAX package's sort order: -0.0 ties +0.0 and every NaN is
+            # one greatest value (the card's radix sort would split both)
+            op = torch.where(op == 0, 0.0, op)
+            op = torch.where(torch.isnan(op), float("nan"), op)
         _, idx = torch.sort(op[perm], stable=True)
         perm = perm[idx]
     return perm

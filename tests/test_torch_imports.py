@@ -33,3 +33,13 @@ def test_port_module_imports_no_jax(path):
             if _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_guard_covers_tpcds_and_window_modules():
+    """The TPC-DS generator and queries and the window module are among
+    the files guarded above."""
+    files = set(_port_files())
+    for path in ("presto_tpu_torch/catalog/tpcds.py",
+                 "presto_tpu_torch/catalog/tpcds_queries.py",
+                 "presto_tpu_torch/ops/window.py"):
+        assert path in files, path

@@ -338,3 +338,204 @@ def test_hash_engine_join():
     go = tj.gather_join_output(tp, tt, pr_, bi_, ol_, ["pk", "prow"],
                                ["bk", "brow"])
     assert go.to_pandas().equals(ro.to_pandas())
+
+
+# ---------------------------------------------------------------------------
+# window functions (ops/window.py)
+
+from presto_tpu.ops import window as rw  # noqa: E402
+from presto_tpu_torch.ops import window as tw  # noqa: E402
+
+_POOL = np.array([-np.inf, -1.5, -0.0, 0.0, 1.0, 2.5, np.inf, np.nan])
+
+
+def _same(got, want, where):
+    """Bit for bit: equal validity, NaN where the reference has NaN, and
+    every other value with the same bits (so -0.0 is not 0.0)."""
+    g, w = np.asarray(got), np.asarray(want)
+    assert g.shape == w.shape, where
+    if g.dtype.kind == "f" or w.dtype.kind == "f":
+        g, w = g.astype(np.float64), w.astype(np.float64)
+        assert (np.isnan(g) == np.isnan(w)).all(), where
+        ok = ~np.isnan(w)
+        np.testing.assert_array_equal(g[ok].view(np.int64),
+                                      w[ok].view(np.int64), err_msg=str(where))
+    else:
+        np.testing.assert_array_equal(g, w.astype(g.dtype), err_msg=str(where))
+
+
+def _same_pair(got, want, where):
+    _same(got[0], want[0], where)
+    if want[1] is None:
+        assert got[1] is None, where
+    else:
+        _same(got[1], want[1], (where, "validity"))
+
+
+@pytest.fixture(scope="module")
+def window_input():
+    """Rows sorted as the window operator sorts them (partition key, then a
+    float order key with NULLs, NaN, +-inf, -0.0 and ties), dead rows
+    last; int and float values with NULLs."""
+    rng = np.random.default_rng(5)
+    n = 300
+    part = rng.integers(0, 6, n)
+    part_valid = rng.random(n) > 0.05
+    okey = _POOL[rng.integers(0, len(_POOL), n)]
+    ok_valid = rng.random(n) > 0.1
+    ivals = rng.integers(-50, 50, n)
+    fvals = _POOL[rng.integers(0, len(_POOL), n)] * rng.integers(1, 4, n)
+    vvalid = rng.random(n) > 0.15
+    live = np.arange(n) < n - 17
+    keys = [rs.SortKey(jnp.asarray(part), jnp.asarray(part_valid)),
+            rs.SortKey(jnp.asarray(okey), jnp.asarray(ok_valid), False,
+                       False)]
+    perm = np.asarray(rs.sort_permutation(keys, jnp.asarray(live)))
+    cols = dict(part=part, part_valid=part_valid, okey=okey,
+                ok_valid=ok_valid, ivals=ivals, fvals=fvals, vvalid=vvalid,
+                live=live)
+    return {k: v[perm] for k, v in cols.items()}
+
+
+def _keys(d, order=True):
+    ref = rw.window_keys(
+        [(jnp.asarray(d["part"]), jnp.asarray(d["part_valid"]))],
+        [(jnp.asarray(d["okey"]), jnp.asarray(d["ok_valid"]))] if order else [],
+        jnp.asarray(d["live"]))
+    port = tw.window_keys(
+        [(_t(d["part"]), _t(d["part_valid"]))],
+        [(_t(d["okey"]), _t(d["ok_valid"]))] if order else [],
+        _t(d["live"]))
+    return ref, port
+
+
+@pytest.mark.parametrize("order", [True, False])
+def test_window_keys_and_ranks_match_reference(window_input, order):
+    rk, pk = _keys(window_input, order)
+    for f in rw.WindowKeys._fields:
+        _same(getattr(pk, f), getattr(rk, f), f)
+    for fn in ("row_number", "rank", "dense_rank", "percent_rank",
+               "cume_dist"):
+        _same_pair(getattr(tw, fn)(pk), getattr(rw, fn)(rk), fn)
+    for b in (1, 3, 7, 500):
+        _same_pair(tw.ntile(pk, b), rw.ntile(rk, b), ("ntile", b))
+
+
+def test_window_value_functions_match_reference(window_input):
+    d = window_input
+    rk, pk = _keys(d)
+    for vals in ("ivals", "fvals"):
+        rv, rvalid = jnp.asarray(d[vals]), jnp.asarray(d["vvalid"])
+        pv, pvalid = _t(d[vals]), _t(d["vvalid"])
+        for off, dflt in ((1, None), (3, None), (2, -7)):
+            _same_pair(tw.lag(pk, pv, pvalid, off, dflt),
+                       rw.lag(rk, rv, rvalid, off, dflt), ("lag", vals, off))
+            _same_pair(tw.lead(pk, pv, pvalid, off, dflt),
+                       rw.lead(rk, rv, rvalid, off, dflt), ("lead", vals, off))
+        _same_pair(tw.first_value(pk, pv, pvalid),
+                   rw.first_value(rk, rv, rvalid), ("first", vals))
+        _same_pair(tw.last_value(pk, pv, pvalid),
+                   rw.last_value(rk, rv, rvalid), ("last", vals))
+        for nth in (1, 2, 5):
+            _same_pair(tw.nth_value(pk, pv, pvalid, nth),
+                       rw.nth_value(rk, rv, rvalid, nth), ("nth", vals, nth))
+
+
+@pytest.mark.parametrize("frame", ["whole", "range", "rows"])
+def test_window_aggregates_match_reference(window_input, frame):
+    """min/max/count exactly; int sums exactly; float sums differ by
+    addition order only (rtol=1e-12 where finite)."""
+    d = window_input
+    rk, pk = _keys(d, order=frame != "whole")
+    for vals in ("ivals", "fvals"):
+        is_float = vals == "fvals"
+        rv, rvalid = jnp.asarray(d[vals]), jnp.asarray(d["vvalid"])
+        pv, pvalid = _t(d[vals]), _t(d["vvalid"])
+        for fn in ("min", "max", "count", "sum", "avg"):
+            a_rv, a_pv, a_float = rv, pv, is_float
+            if fn == "avg" and not is_float:
+                a_rv, a_pv, a_float = rv.astype(jnp.float64), pv.double(), True
+            got = tw.agg_window(pk, fn, a_pv, pvalid, frame, a_float)
+            want = rw.agg_window(rk, fn, a_rv, rvalid, frame, a_float)
+            if fn in ("sum", "avg") and a_float:
+                _same(got[1], want[1], (fn, vals, "validity"))
+                np.testing.assert_allclose(np.asarray(got[0]),
+                                           np.asarray(want[0]), rtol=1e-12)
+            else:
+                _same_pair(got, want, (fn, vals, frame))
+
+
+# NULL placement moves only RANGE bounds: ROWS frames run once
+@pytest.mark.parametrize("frame, nulls_first", [
+    (f, False) for f in ("rows:p3:f2", "rows:up:cur", "rows:cur:uf",
+                         "rows:f10000:f10001", "rows:p5:p1")] + [
+    (f, nf) for f in ("range:p1:f1", "range:cur:f2", "range:up:p1",
+                      "range:p0:f0", "range:f1:uf") for nf in (False, True)])
+def test_bounded_frames_match_reference(window_input, frame, nulls_first):
+    """ROWS and RANGE-offset frames over a float order key with NULLs, NaN,
+    +-inf and -0.0: the frame bounds, count, min and max bit for bit (the
+    sparse table's range-min query included), int sums exactly, float sums
+    to rtol=1e-12 where finite."""
+    d = window_input
+    rk, pk = _keys(d)
+    rng_r = dict(order_vals=jnp.asarray(d["okey"]),
+                 order_valid=jnp.asarray(d["ok_valid"]),
+                 nulls_first=nulls_first)
+    rng_p = dict(order_vals=_t(d["okey"]), order_valid=_t(d["ok_valid"]),
+                 nulls_first=nulls_first)
+    if frame.startswith("range:"):
+        got = tw.range_frame_bounds(pk, rng_p["order_vals"], frame,
+                                    rng_p["order_valid"], nulls_first)
+        want = rw.range_frame_bounds(rk, rng_r["order_vals"], frame,
+                                     rng_r["order_valid"], nulls_first)
+    else:
+        got, want = tw.frame_bounds(pk, frame), rw.frame_bounds(rk, frame)
+    for g, w, what in zip(got, want, ("start", "end", "nonempty")):
+        _same(g, w, (frame, what))
+    for vals in ("ivals", "fvals"):
+        is_float = vals == "fvals"
+        rv, rvalid = jnp.asarray(d[vals]), jnp.asarray(d["vvalid"])
+        pv, pvalid = _t(d[vals]), _t(d["vvalid"])
+        for fn in ("count", "min", "max", "sum"):
+            got = tw.agg_window_bounded(pk, fn, pv, pvalid, frame, is_float,
+                                        **rng_p)
+            want = rw.agg_window_bounded(rk, fn, rv, rvalid, frame, is_float,
+                                         **rng_r)
+            if fn == "sum" and is_float:
+                _same(got[1], want[1], (fn, frame, "validity"))
+                g, w = np.asarray(got[0]), np.asarray(want[0])
+                fin = np.isfinite(w)
+                assert (np.isnan(g) == np.isnan(w)).all()
+                np.testing.assert_allclose(g[fin], w[fin], rtol=1e-12)
+            else:
+                _same_pair(got, want, (fn, vals, frame))
+        for fn in ("first_value", "last_value", "nth_value"):
+            _same_pair(
+                tw.value_over_frame(pk, fn, pv, pvalid, frame, 2, **rng_p),
+                rw.value_over_frame(rk, fn, rv, rvalid, frame, 2, **rng_r),
+                (fn, vals, frame))
+
+
+def test_segmented_cummin_and_range_min_bit_exact(window_input):
+    """The doubling scan equals the JAX package's associative scan, and the
+    sparse table's queries (floor(log2) by compares, not clz) equal its
+    clz-based ones, bit for bit, on values with NaN, +-inf and -0.0."""
+    d = window_input
+    rk, pk = _keys(d)
+    rng = np.random.default_rng(9)
+    for v in (d["fvals"], d["ivals"]):
+        _same(tw._segmented_cummin(_t(v), pk),
+              rw._segmented_cummin(jnp.asarray(v), rk), "cummin")
+        rt = rw._range_min_table(jnp.asarray(v))
+        pt = tw._range_min_table(_t(v))
+        _same(pt, rt, "table")
+        n = len(v)
+        s = rng.integers(0, n, 500)
+        e = np.minimum(s + rng.integers(0, n, 500), n - 1)
+        _same(tw._range_min_query(pt, _t(s), _t(e)),
+              rw._range_min_query(rt, jnp.asarray(s), jnp.asarray(e)),
+              "query")
+    span = np.arange(1, 1 << 12)
+    np.testing.assert_array_equal(
+        tw.floor_log2(_t(span), 40).numpy(),
+        np.floor(np.log2(span)).astype(np.int64))
