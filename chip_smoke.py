@@ -32,8 +32,19 @@
    FRACTION = 0.0001 / SF). One more run of each query under hash records
    each kernel's largest input, which is launched again and held to its
    contract (grouped_sums against its plain version, the others by their
-   invariants). At SF 0.01 the 22 runs under hash must give the same
-   frame on the card as on the CPU.
+   invariants). At SF 0.01 the 44 runs must give the same frames on the
+   card as on the CPU.
+   Then the SQL surface beyond TPC-H and TPC-DS (`phase_surface`) on the
+   same SF 1 catalog, with a fresh memory catalog as the statements'
+   target: string functions over customer and part, a string range, a
+   compare of two string columns across lineitem ⋈ orders, casts to
+   varchar (HostProject over 133,104 orders) and from it, SELECT without
+   FROM, approx_distinct/geometric_mean/checksum over lineitem, and CTAS
+   of 1.5 M groups, INSERT, DELETE, a view read back and the drops, under
+   auto and hash, each against a numpy/pandas oracle (approx_distinct
+   within 5 % of the exact count); launches, warm median of 3 and device
+   time of each; each kernel's largest input of the phase held to its
+   contract; the same at SF 0.01 on the card against the CPU.
    Then TPC-DS (`phase_tpcds`): the 44 queries of
    presto_tpu_torch/catalog/tpcds_queries.py at SF 1 under auto and hash
    (engines agree; nine numpy/pandas oracles; every query returns rows;
@@ -63,7 +74,9 @@
    join_probe's in the queries with a hash SemiJoin), timed the same way.
 
 Prints a `tpch22` JSON line (each query and engine: rows, warm median,
-first run, lineitem rows/s, launches, device time), a `tpcds` JSON line
+first run, lineitem rows/s, launches, device time), a `surface` JSON line
+(each statement and engine: rows, warm median, launches, device time and
+busy share), a `tpcds` JSON line
 (the same with store_sales rows/s, and INTERSECT ALL's), a `kernels` JSON
 line (with each kernel's launches on the TPC-DS path under hash)
 (`ms` is the cold kernel-alone time where one was taken; `large` holds the
@@ -930,10 +943,6 @@ ORDER_KEYS = {
     "q20": ["s_name"], "q21": ["numwait", "s_name"], "q22": ["cntrycode"],
 }
 ENGINES = ("auto", "hash")
-# the TPC-H SF 0.01 card-against-CPU reruns: hash only, since the TPC-DS
-# phase took the whole run past 400 s (its own 88 such runs cover both
-# engines)
-SMALL_TPCH_ENGINES = ("hash",)
 # the queries whose SemiJoins take the hash engine (no residual): their
 # join_insert builds keep duplicate keys (Q4's lineitem, Q22's orders)
 SEMI_HASH = ("q4", "q16", "q18", "q20", "q22")
@@ -1144,10 +1153,14 @@ PORT_KERNELS = ("grouped_sums", "group_insert", "group_range", "join_insert",
                 "join_probe", "join_range", "range_count", "range_scatter")
 
 
-def device_profile(torch, run):
+def device_profile(torch, run, check=False):
     """Device time of one call of `run` by torch.profiler (CUDA activity):
     every kernel, memset and copy, in ms; the port's kernels' share; the
-    three largest entries."""
+    three largest entries. The times are summed from the profiler's device
+    activity records: `key_averages()` builds a Python object an event,
+    seconds of host time for a query of thousands of launches; with
+    `check` the two totals must agree to 1e-3."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1155,12 +1168,19 @@ def device_profile(torch, run):
         run()
         torch.cuda.synchronize()
     times = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = e.cuda_time_total
-        if t > 0:
-            times[e.key] = t / 1e3
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            times[e.name()] = times.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    if check:
+        slow = 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            slow += (e.cuda_time_total if t is None else t) / 1e3
+        fast = sum(times.values())
+        print(f"device_profile: {fast:.4f} ms from the activity records, "
+              f"{slow:.4f} ms from key_averages()")
+        require(abs(fast - slow) <= 1e-3 * slow, "device_profile: the "
+                "activity records and key_averages() disagree")
     ours = sum(t for k, t in times.items()
                if any(n in k for n in PORT_KERNELS))
     top = sorted(times.items(), key=lambda kv: -kv[1])[:3]
@@ -1180,8 +1200,7 @@ def phase_tpch22(torch, cat, errs):
     it, the port's kernels' part, and the three largest entries. One more
     run under hash records each kernel's largest input, which
     `check_recorded` holds to its contract. At SF 0.01 every query under
-    hash (SMALL_TPCH_ENGINES) must give the same frame on the card as on
-    the CPU.
+    both engines must give the same frame on the card as on the CPU.
     Returns name -> [(label, arguments)]: the inputs the timing phase
     times, per kernel the largest of the 22 queries and, for join_insert
     and join_probe, those of the SEMI_HASH queries."""
@@ -1227,7 +1246,8 @@ def phase_tpch22(torch, cat, errs):
             require(len(out) > 0, f"{q} {eng} SF {SF}: no row")
             frames_agree(again, out, ORDER_KEYS[q], f"{q} {eng} rerun")
             sec = statistics.median(ts)
-            dev = device_profile(torch, lambda: runners[eng].run(sql))
+            dev = device_profile(torch, lambda: runners[eng].run(sql),
+                                 check=q == "q1")
             outs[eng] = out
             if q in oracles:
                 check_oracle(out, oracles[q], q, f"{q} {eng} SF {SF} oracle")
@@ -1261,7 +1281,7 @@ def phase_tpch22(torch, cat, errs):
     small = tpch_catalog(SMALL_SF)
     hows = {}
     for q, sql in TPCH.items():
-        for eng in SMALL_TPCH_ENGINES:
+        for eng in ENGINES:
             cfg = ExecConfig(breaker_engine=eng)
             on_gpu = LocalRunner(small, cfg).run(sql)
             on_cpu = LocalRunner(small, cfg, device="cpu").run(sql)
@@ -1278,6 +1298,310 @@ def phase_tpch22(torch, cat, errs):
         timed[name] += [(f"{sq} hash SF {SF} (hash SemiJoin), its largest",
                          a) for sq, a in semi.get(name, []) if sq != q]
     return timed
+
+
+# ---------------------------------------------------------------------------
+# phase 3b': the SQL surface beyond TPC-H and TPC-DS
+
+# name -> SQL over TPC-H: string functions over dictionaries of real size,
+# string compares, casts from and to varchar, SELECT without FROM, and
+# approx_distinct/geometric_mean/checksum. `li_aggs` mixes approx_distinct
+# with other aggregates, which the planner computes exactly (count
+# DISTINCT); `li_hll` alone takes the HyperLogLog lowering, whose GROUP BY
+# (flag, register) runs group_insert under hash.
+SURFACE = {
+    "upper_length": "select upper(c_mktsegment) seg, count(*) n, "
+                    "sum(length(c_name)) ln from customer group by 1 "
+                    "order by 1",
+    "phone_prefix": "select substr(c_phone, 1, 2) || '-' cc, count(*) n "
+                    "from customer group by 1 order by 1",
+    "type_word_regexp": "select split_part(p_type, ' ', 2) t, count(*) n, "
+                        "count_if(regexp_like(p_name, '^[a-f]')) rl "
+                        "from part group by 1 order by 1",
+    "promo_range": "select count(*) n, sum(p_size) s from part "
+                   "where p_type between 'PROMO' and 'PROMOZ'",
+    "status_columns": "select count(*) n from orders, lineitem "
+                      "where o_orderkey = l_orderkey "
+                      "and l_linestatus <> o_orderstatus",
+    "orderkey_text": "select cast(o_orderkey as varchar) k from orders "
+                     "where o_orderdate >= date '1998-01-01'",
+    "clerk_number": "select sum(cast(substr(o_clerk, 7) as bigint)) s, "
+                    "count_if(cast(substr(o_clerk, 7) as bigint) < 500) lo "
+                    "from orders",
+    "no_from": "select 1 + 2 x, 'x' || 'y' s",
+    "li_aggs": "select l_returnflag, approx_distinct(l_orderkey) d, "
+               "geometric_mean(l_extendedprice) gm, checksum(l_partkey) ck "
+               "from lineitem group by 1 order by 1",
+    "li_hll": "select l_returnflag, approx_distinct(l_orderkey) d "
+              "from lineitem group by 1 order by 1",
+}
+# the statements, one sequence a run: CTAS into a fresh memory catalog,
+# INSERT of one more slice, DELETE, a view read back, DROPs
+STATEMENTS = [
+    ("ctas", "create table mem.li_agg as select l_orderkey, "
+             "sum(l_quantity) q from tpch.lineitem group by l_orderkey"),
+    ("insert", "insert into mem.li_agg select l_orderkey, sum(l_quantity) q "
+               "from tpch.lineitem where l_shipdate >= date '1998-08-01' "
+               "group by l_orderkey"),
+    ("delete", "delete from mem.li_agg where q > 200"),
+    ("view", "create view big_orders as select l_orderkey, q "
+             "from mem.li_agg where q > 150"),
+    ("read_back", "select count(*) n, sum(q) s, min(l_orderkey) lo "
+                  "from big_orders"),
+    ("drop_view", "drop view big_orders"),
+    ("drop_table", "drop table mem.li_agg"),
+]
+HLL_RTOL = 0.05  # approx_distinct against the exact count
+GM_RTOL = 1e-9  # geometric_mean: a sum of logs in another order
+
+
+def surface_oracles(conn):
+    """Each SURFACE query's and statement's expected result from the
+    generated tables (dictionary values, unscaled integers) with numpy and
+    pandas; li_aggs and li_hll give their exact distinct counts, which
+    approx_distinct is held to within HLL_RTOL."""
+    import re as _re
+
+    import numpy as np
+    import pandas as pd
+
+    def table(name):
+        conn.get_table(name)
+        return conn.tables[name]
+
+    def text(t, col):
+        return t.dicts[col].values[t.arrays[col]]
+
+    cu, pa, od, li = (table(n) for n in ("customer", "part", "orders",
+                                         "lineitem"))
+    out = {}
+    seg = pd.DataFrame({"seg": pd.Series(text(cu, "c_mktsegment")).str.upper(),
+                        "ln": pd.Series(text(cu, "c_name")).str.len()})
+    g = seg.groupby("seg", sort=True)
+    out["upper_length"] = pd.DataFrame({
+        "seg": g.size().index.to_list(), "n": g.size().to_list(),
+        "ln": g["ln"].sum().to_list()})
+    cc = pd.Series(text(cu, "c_phone")).str[:2] + "-"
+    vc = cc.value_counts().sort_index()
+    out["phone_prefix"] = pd.DataFrame({"cc": vc.index.to_list(),
+                                        "n": vc.to_list()})
+    pt = pd.DataFrame({
+        "t": [s.split(" ")[1] for s in text(pa, "p_type")],
+        "rl": [_re.search("^[a-f]", s) is not None
+               for s in text(pa, "p_name")]})
+    g = pt.groupby("t", sort=True)
+    out["type_word_regexp"] = pd.DataFrame({
+        "t": g.size().index.to_list(), "n": g.size().to_list(),
+        "rl": g["rl"].sum().to_list()})
+    types = text(pa, "p_type")
+    m = (types >= "PROMO") & (types <= "PROMOZ")
+    out["promo_range"] = pd.DataFrame({
+        "n": [int(m.sum())], "s": [int(pa.arrays["p_size"][m].sum())]})
+    order = np.argsort(od.arrays["o_orderkey"])
+    pos = np.searchsorted(od.arrays["o_orderkey"][order],
+                          li.arrays["l_orderkey"])
+    ostat = text(od, "o_orderstatus")[order][pos]
+    out["status_columns"] = pd.DataFrame({
+        "n": [int((text(li, "l_linestatus") != ostat).sum())]})
+    keep = od.arrays["o_orderdate"] >= _days(1998, 1, 1)
+    out["orderkey_text"] = pd.DataFrame({
+        "k": [str(int(k)) for k in od.arrays["o_orderkey"][keep]]})
+    clerk = np.array([int(s[6:]) for s in od.dicts["o_clerk"].values])[
+        od.arrays["o_clerk"]]
+    out["clerk_number"] = pd.DataFrame({"s": [int(clerk.sum())],
+                                        "lo": [int((clerk < 500).sum())]})
+    out["no_from"] = pd.DataFrame({"x": [3], "s": ["xy"]})
+    flag = text(li, "l_returnflag")
+    ep = li.arrays["l_extendedprice"].astype(np.float64) * (1.0 / 100)
+    with np.errstate(over="ignore"):
+        h = li.arrays["l_partkey"].astype(np.int64) * np.int64(
+            -7070675565921424023)
+        h ^= h >> 31
+    rows = []
+    for f in sorted(set(flag)):
+        sel = flag == f
+        rows.append({"l_returnflag": f,
+                     "d": len(np.unique(li.arrays["l_orderkey"][sel])),
+                     "gm": float(np.exp(np.log(ep[sel]).mean())),
+                     "ck": int(h[sel].sum(dtype=np.int64))})
+    out["li_aggs"] = pd.DataFrame(rows)
+    out["li_hll"] = out["li_aggs"][["l_returnflag", "d"]]
+    q = pd.Series(li.arrays["l_quantity"]).groupby(
+        li.arrays["l_orderkey"]).sum()
+    late = li.arrays["l_shipdate"] >= _days(1998, 8, 1)
+    q2 = pd.Series(li.arrays["l_quantity"][late]).groupby(
+        li.arrays["l_orderkey"][late]).sum()
+    both = pd.concat([q, q2])
+    kept = both[both <= 200]
+    big = kept[kept > 150]
+    out["statements"] = {
+        "ctas": len(q), "insert": len(q2),
+        "delete": int((both > 200).sum()), "view": 0,
+        "read_back": pd.DataFrame({"n": [len(big)], "s": [int(big.sum())],
+                                   "lo": [int(big.index.min())]}),
+        "drop_view": 0, "drop_table": 0}
+    return out
+
+
+def check_surface(name, got, want, label) -> None:
+    """Exact, but approx_distinct within HLL_RTOL of the exact count and
+    geometric_mean to GM_RTOL."""
+    import numpy as np
+
+    if name not in ("li_aggs", "li_hll"):
+        frames_equal(got, want, label)
+        return
+    require(list(got.columns) == list(want.columns)
+            and len(got) == len(want), f"{label}: shape differs")
+    require(list(got["l_returnflag"]) == list(want["l_returnflag"]),
+            f"{label}: groups differ")
+    err = np.abs(got["d"].to_numpy(np.float64) / want["d"].to_numpy() - 1)
+    require(err.max() <= HLL_RTOL, f"{label}: approx_distinct off by "
+            f"{err.max():.4f} of the exact count")
+    if name == "li_aggs":
+        require(np.allclose(got["gm"].to_numpy(np.float64), want["gm"],
+                            rtol=GM_RTOL, atol=0),
+                f"{label}: geometric_mean differs")
+        require(list(got["ck"]) == list(want["ck"]), f"{label}: checksum "
+                "differs")
+
+
+def run_statements(torch, runner, want=None, label="", each=None):
+    """One pass of STATEMENTS: name -> (seconds, frame, what `each` gave).
+    `each(run)` runs one statement and returns (frame, extra); each `rows`
+    count, and the read-back frame, are held to `want` when given."""
+    out = {}
+    for name, sql in STATEMENTS:
+        def run(sql=sql):
+            return runner.run(sql)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        df, extra = (run(), None) if each is None else each(run)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0, df, extra)
+        if want is None:
+            continue
+        if name == "read_back":
+            frames_equal(df, want[name], f"{label} {name}")
+        else:
+            require(list(df["rows"]) == [want[name]],
+                    f"{label} {name}: {list(df['rows'])} rows, "
+                    f"want {want[name]}")
+    return out
+
+
+def phase_surface(torch, cat, errs):
+    """The SQL surface beyond TPC-H and TPC-DS on the TPC-H SF 1 catalog,
+    with a fresh memory catalog `mem` as the CTAS/INSERT target: each
+    SURFACE query and the STATEMENTS sequence under auto and hash, held to
+    surface_oracles; launches of the first run (counts reset just before,
+    read just after; under hash group_insert must launch on li_hll's and
+    the CTAS's GROUP BY), warm median of 3 after it, and the device time
+    of one more run. One more run under hash records each kernel's largest
+    input, held to its contract (`check_recorded`). At SF 0.01 every
+    query and statement gives the same frames on the card as on the CPU
+    (geometric_mean to GM_RTOL: its sum of logs adds in each device's
+    order). Prints a `surface` JSON line."""
+    from presto_tpu_torch.catalog.memory import MemoryConnector
+    from presto_tpu_torch.catalog.tpch import tpch_catalog
+    from presto_tpu_torch.exec import ExecConfig, LocalRunner
+    from presto_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    conn = cat.connectors["tpch"]
+    want = surface_oracles(conn)
+    print(f"surface: oracles ready in {time.perf_counter() - t0:.1f} s")
+    cat.register("mem", MemoryConnector())
+    runners = {e: LocalRunner(cat, ExecConfig(breaker_engine=e))
+               for e in ENGINES}
+    summary = []
+
+    def report(name, eng, first_launches, warm, dev, rows):
+        summary.append({"statement": name, "engine": eng, "rows": rows,
+                        "warm_ms": warm * 1e3, "launches": first_launches,
+                        "busy": dev["device_ms"] / (warm * 1e3), **dev})
+        print(f"surface {name} {eng} SF {SF}: {rows} rows; warm median of 3 "
+              f"{warm * 1e3:.1f} ms; launches {json.dumps(first_launches)}; "
+              f"device time of one run {dev['device_ms']:.2f} ms "
+              f"({dev['device_ms'] / warm / 10:.1f} % of the warm median); "
+              f"largest {json.dumps(dev['top'])}")
+
+    for name, sql in SURFACE.items():
+        for eng in ENGINES:
+            reset_launch_counts()
+            out = runners[eng].run(sql)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in launch_counts().items() if v}
+            check_surface(name, out, want[name], f"surface {name} {eng}")
+            if name == "li_hll" and eng == "hash":
+                require(launches.get("group_insert", 0) > 0,
+                        "surface li_hll hash: group_insert did not launch")
+            again, warm = timed_runs(torch, runners[eng], sql)
+            check_surface(name, again, want[name], f"surface {name} {eng} "
+                          "warm")
+            dev = device_profile(torch, lambda: runners[eng].run(sql))
+            report(name, eng, launches, warm, dev, len(out))
+
+    def counted(run):
+        reset_launch_counts()
+        df = run()
+        torch.cuda.synchronize()
+        return df, {k: v for k, v in launch_counts().items() if v}
+
+    def profiled(run):
+        box = {}
+        dev = device_profile(torch, lambda: box.setdefault("df", run()))
+        return box["df"], dev
+
+    for eng in ENGINES:
+        label = f"surface statements {eng}"
+        first = run_statements(torch, runners[eng], want["statements"],
+                               label, counted)
+        passes = [run_statements(torch, runners[eng], want["statements"],
+                                 label) for _ in range(3)]
+        prof = run_statements(torch, runners[eng], want["statements"],
+                              label, profiled)
+        if eng == "hash":
+            require(first["ctas"][2].get("group_insert", 0) > 0,
+                    "surface ctas hash: group_insert did not launch")
+        for name, _ in STATEMENTS:
+            report(f"statement_{name}", eng, first[name][2],
+                   statistics.median(p[name][0] for p in passes),
+                   prof[name][2], len(first[name][1]))
+
+    inputs = record_run(torch, lambda: (
+        [runners["hash"].run(q) for q in SURFACE.values()],
+        run_statements(torch, runners["hash"])))
+    done = check_recorded(torch, inputs, errs)
+    print(f"surface hash SF {SF}: each kernel's largest input holds its "
+          f"contract: {json.dumps(done)}")
+
+    small = tpch_catalog(SMALL_SF)
+    small.register("mem", MemoryConnector())
+    same = 0
+    for eng in ENGINES:
+        cfg = ExecConfig(breaker_engine=eng)
+        on_gpu, on_cpu = LocalRunner(small, cfg), LocalRunner(
+            small, cfg, device="cpu")
+        for name, sql in SURFACE.items():
+            # geometric_mean sums logs in the order each device adds them
+            columns_equal(on_gpu.run(sql), on_cpu.run(sql),
+                          f"surface {name} {eng} SF {SMALL_SF} card vs CPU",
+                          rtol=GM_RTOL)
+            same += 1
+        gpu = run_statements(torch, on_gpu)
+        cpu = run_statements(torch, on_cpu)
+        for name, _ in STATEMENTS:
+            require(gpu[name][1].equals(cpu[name][1]),
+                    f"surface statement {name} {eng} SF {SMALL_SF}: card "
+                    "and CPU differ")
+            same += 1
+    print(f"surface SF {SMALL_SF}: {same} runs equal on the card and the "
+          f"CPU (exact; geometric_mean to {GM_RTOL})")
+    del cat.connectors["mem"]
+    print(f"surface: phase took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"surface": summary}))
 
 
 # ---------------------------------------------------------------------------
@@ -1614,6 +1938,7 @@ def phase_tpcds(torch, errs):
     setop = ds_intersect_all(torch, runners["hash"], conn)
     del runners, cat, conn
 
+    print(f"tpcds: SF {SF} queries done at {time.perf_counter() - t0:.1f} s")
     small = tpcds_catalog(SMALL_SF)
     small_ties = None
     hows = {}
@@ -2213,6 +2538,7 @@ def main() -> int:
     errs = phase_kernels(torch)
     launches, inputs, _, cat = phase_queries(torch)
     timed = phase_tpch22(torch, cat, errs)
+    phase_surface(torch, cat, errs)
     del cat
     ds_launches, ds_timed = phase_tpcds(torch, errs)
     rows = phase_timing(torch, inputs, timed, ds_timed, errs)

@@ -207,6 +207,19 @@ class Batch:
             if t.is_string and decode_strings and name in self.dicts:
                 arr = self.dicts[name].decode(
                     np.where(valid, vals, -1) if valid is not None else vals)
+                if t.name == "varbinary":
+                    # bytes back out of the latin-1 bijection
+                    arr = np.array([None if v is None
+                                    else str(v).encode("latin-1")
+                                    for v in arr], dtype=object)
+                elif t.name in ("ipaddress", "ipprefix"):
+                    # canonical-byte entries render as address text
+                    from presto_tpu_torch.expr import ip as _ip
+
+                    fmt = (_ip.format_address if t.name == "ipaddress"
+                           else _ip.format_prefix)
+                    arr = np.array([None if v is None else fmt(str(v))
+                                    for v in arr], dtype=object)
             else:
                 if isinstance(t, DecimalType) and decode_strings:
                     q = decimal.Decimal(1).scaleb(-t.scale)

@@ -3,8 +3,11 @@
 Analog of presto-memory (the test/demo connector). Tables live on the host
 as numpy arrays; a split is read into a Batch on the caller's device and
 kept there (the device-resident split cache), so a repeated scan reads
-device memory instead of crossing PCIe again. Scalar columns only:
-ARRAY/MAP columns come with the structural planes in a later slice.
+device memory instead of crossing PCIe again. CREATE TABLE [AS], INSERT,
+DELETE's rewrite, TRUNCATE and DROP write the host table and drop its
+cached splits. Scalar columns only (varchar, varbinary, ipaddress and
+ipprefix as dictionary codes): ARRAY/MAP columns come with the structural
+planes in a later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from presto_tpu_torch.types import (
     INTEGER,
     DecimalType,
     Type,
+    VARBINARY,
     VARCHAR,
 )
 
@@ -49,11 +53,16 @@ def _is_null(v) -> bool:
 
 
 def _null_mask(arr: np.ndarray) -> np.ndarray:
-    """The NULLs of an object array, in one vectorized pass: None, NaN and
-    pandas' NA (as _is_null), and also NaT."""
+    """The NULLs of an object array by _is_null's rule: pd.isna finds the
+    candidates in one vectorized pass, and of those only None, pandas' NA
+    and a Python float NaN are NULL (a float32 NaN, NaT or Decimal('NaN')
+    is a value, as in the JAX package)."""
     import pandas as pd
 
-    return np.asarray(pd.isna(arr), dtype=bool)
+    out = np.asarray(pd.isna(arr), dtype=bool)
+    for i in np.flatnonzero(out):
+        out[i] = _is_null(arr[i])
+    return out
 
 
 def _infer_type(arr: np.ndarray) -> Type:
@@ -71,7 +80,9 @@ def _infer_type(arr: np.ndarray) -> Type:
             return BIGINT
         if isinstance(first, (float, np.floating)):
             return DOUBLE
-        if isinstance(first, (list, tuple, dict, bytes, bytearray)):
+        if isinstance(first, (bytes, bytearray)):
+            return VARBINARY
+        if isinstance(first, (list, tuple, dict)):
             raise NotImplementedError(
                 f"column type of {type(first).__name__} values is not "
                 "supported by the port yet")
@@ -81,6 +92,74 @@ def _infer_type(arr: np.ndarray) -> Type:
     if arr.dtype.kind == "M":  # datetime64
         return DATE
     raise TypeError(f"cannot infer SQL type for {arr.dtype}")
+
+
+def _canonical_ip(v, type_name: str) -> str:
+    """An IPADDRESS or IPPREFIX value (text, or its canonical bytes) as
+    its canonical dictionary entry; a NULL slot stays ""."""
+    from presto_tpu_torch.expr import ip as _ip
+
+    if v == "":
+        return ""
+    prefix = type_name == "ipprefix"
+    if isinstance(v, (bytes, bytearray)):
+        e = v.decode("latin-1")
+        if prefix:
+            # only the 17-byte canonical form: 16 address bytes carry no
+            # prefix length
+            s = e if _ip.format_prefix(e) else None
+        else:
+            s = _ip.address_from_bytes(e)
+    elif prefix:
+        s = _ip.parse_prefix(str(v))
+    else:
+        s = _ip.parse_address(str(v))
+    if s is None:
+        raise ValueError(f"invalid {type_name}: {v!r}")
+    return s
+
+
+def _batches_to_host(batches: Sequence[Batch]):
+    """Result batches → host columns for the write path: names, types and
+    {name: (values, validity|None, hi|None, Dictionary|None)}, live rows
+    only, string columns against one dictionary."""
+    from presto_tpu_torch.exec.runtime import _unify_batch_dicts
+
+    batches = list(batches)
+    if not batches:
+        return [], [], {}
+    if len(batches) > 1:
+        batches = _unify_batch_dicts(batches)
+    names, types = list(batches[0].names), list(batches[0].types)
+    out = {}
+    for i, name in enumerate(names):
+        vals, valids, his = [], [], []
+        any_valid = any_hi = False
+        d = None
+        for b in batches:
+            live = b.live.cpu().numpy()
+            c = b.columns[i]
+            vals.append(c.values.cpu().numpy()[live])
+            if c.validity is not None:
+                any_valid = True
+                valids.append(c.validity.cpu().numpy()[live])
+            else:
+                valids.append(np.ones(int(live.sum()), bool))
+            if c.hi is not None:
+                any_hi = True
+                his.append(c.hi.cpu().numpy()[live])
+            else:
+                his.append(np.zeros(int(live.sum()), np.int64))
+            if name in b.dicts:
+                if d is not None and b.dicts[name] is not d:
+                    d = Dictionary.merge(d, b.dicts[name])
+                elif d is None:
+                    d = b.dicts[name]
+        out[name] = (np.concatenate(vals),
+                     np.concatenate(valids) if any_valid else None,
+                     np.concatenate(his) if any_hi else None,
+                     d)
+    return names, types, out
 
 
 class MemoryTable:
@@ -121,10 +200,23 @@ class MemoryTable:
                     valid = ~nulls
                     arr = np.where(nulls, "" if t.is_string else 0, arr)
             if t.is_string:
-                if t is not VARCHAR:
-                    raise NotImplementedError(
-                        f"{t.name} columns are not supported by the port yet")
-                d, codes = Dictionary.encode(arr.astype(str))
+                if t.name == "varbinary":
+                    # bytes ride the latin-1 bijection into the dictionary
+                    arr = np.array(
+                        [v.decode("latin-1")
+                         if isinstance(v, (bytes, bytearray)) else str(v)
+                         for v in arr], dtype=object)
+                elif t.name in ("ipaddress", "ipprefix"):
+                    arr = np.array([_canonical_ip(v, t.name) for v in arr],
+                                   dtype=object)
+                # the byte-carrying types may hold NULs: they keep object
+                # dtype into encode (dictionary.safe_str_array); varchar
+                # keeps the fast astype(str)
+                nul_risky = t.name in ("varbinary", "ipaddress", "ipprefix",
+                                       "tdigest(double)")
+                d, codes = Dictionary.encode(
+                    arr if arr.dtype == object and nul_risky
+                    else arr.astype(str))
                 if valid is not None:
                     codes = np.where(valid, codes, -1)
                 self.dicts[col] = d
@@ -281,6 +373,124 @@ class MemoryConnector(Connector):
         if name not in self.tables:
             raise KeyError(f"table not found: {name}")
         return self.tables[name].handle(self.name)
+
+    # -- write path: a statement's rows go to the host table, and the
+    # device split cache of that table is dropped ---------------------------
+
+    def create_table_from(self, name: str, batches: Sequence[Batch],
+                          if_not_exists: bool = False,
+                          properties: Optional[dict] = None) -> int:
+        if properties:
+            raise ValueError(
+                "memory connector does not support table properties")
+        if name in self.tables:
+            if if_not_exists:
+                return 0
+            raise ValueError(f"table already exists: {name}")
+        names, types, data = _batches_to_host(batches)
+        mt = MemoryTable(name, {}, {})
+        mt.types = dict(zip(names, types))
+        rows = 0
+        for col, (vals, valid, hi, d) in data.items():
+            mt.arrays[col] = vals
+            mt.validity[col] = valid
+            mt.hi[col] = hi
+            if d is not None:
+                mt.dicts[col] = d
+            rows = len(vals)
+        mt.num_rows = rows
+        self.tables[name] = mt
+        self.invalidate_cache(name)
+        return rows
+
+    def insert_into(self, name: str, batches: Sequence[Batch]) -> int:
+        """INSERT ... SELECT: source columns feed the table's by position
+        and must have its types; string codes re-encode into the table's
+        dictionary."""
+        if name not in self.tables:
+            raise KeyError(f"table not found: {name}")
+        mt = self.tables[name]
+        names, types, data = _batches_to_host(batches)
+        target_cols = list(mt.arrays.keys())
+        if len(names) != len(target_cols):
+            raise ValueError(
+                f"INSERT arity mismatch: {len(names)} columns vs "
+                f"{len(target_cols)} in {name}")
+        for col, t in zip(target_cols, types):
+            if t.name != mt.types[col].name:
+                raise ValueError(
+                    f"INSERT column {col} type mismatch: {t} vs "
+                    f"{mt.types[col]}")
+        rows = 0
+        for src, col in zip(names, target_cols):
+            vals, valid, hi, d = data[src]
+            old_n = mt.num_rows
+            if d is not None and mt.dicts.get(col) is None:
+                # a string column created without a dictionary (CTAS of an
+                # all-NULL varchar) adopts the incoming one
+                mt.dicts[col] = d
+            elif d is not None and d is not mt.dicts[col]:
+                m = Dictionary.merge(mt.dicts[col], d)
+                if m is not mt.dicts[col]:
+                    remap_old = np.concatenate(
+                        [[-1], np.searchsorted(m.values,
+                                               mt.dicts[col].values)]
+                    ).astype(np.int32)
+                    mt.arrays[col] = remap_old[mt.arrays[col] + 1]
+                    mt.dicts[col] = m
+                vals = np.asarray(d.map_to(m))[vals.astype(np.int32) + 1]
+            mt.arrays[col] = np.concatenate([mt.arrays[col], vals])
+            if valid is not None or mt.validity.get(col) is not None:
+                old_v = mt.validity.get(col)
+                mt.validity[col] = np.concatenate([
+                    old_v if old_v is not None else np.ones(old_n, bool),
+                    valid if valid is not None
+                    else np.ones(len(vals), bool)])
+            if hi is not None or mt.hi.get(col) is not None:
+                old_h = mt.hi.get(col)
+                mt.hi[col] = np.concatenate([
+                    old_h if old_h is not None else np.zeros(old_n, np.int64),
+                    hi if hi is not None else np.zeros(len(vals), np.int64)])
+            rows = len(vals)
+        mt.num_rows += rows
+        mt.__dict__.pop("_stats_cache", None)
+        self.invalidate_cache(name)
+        return rows
+
+    def drop_table(self, name: str, if_exists: bool = False) -> None:
+        if name not in self.tables:
+            if if_exists:
+                return
+            raise KeyError(f"table not found: {name}")
+        del self.tables[name]
+        self.invalidate_cache(name)
+
+    def create_empty(self, name: str, cols, if_not_exists: bool = False):
+        """CREATE TABLE name (schema): no rows, the given types."""
+        if name in self.tables:
+            if if_not_exists:
+                return
+            raise ValueError(f"table already exists: {name}")
+        data = {c: (np.array([], dtype=object) if t.is_string
+                    else np.zeros(0, dtype=t.dtype))
+                for c, t in cols}
+        self.tables[name] = MemoryTable(name, data, dict(cols))
+        self.invalidate_cache(name)
+
+    def truncate_table(self, name: str):
+        mt = self.tables.get(name)
+        if mt is None:
+            raise KeyError(f"table not found: {name}")
+        cols = list(mt.types.items())
+        del self.tables[name]
+        self.create_empty(name, cols)
+
+    def replace_table_from(self, name: str, batches) -> int:
+        """DELETE's target: the table becomes the rows it keeps."""
+        if name not in self.tables:
+            raise KeyError(f"table not found: {name}")
+        del self.tables[name]
+        return self.create_table_from(name, batches)
 
     def splits(self, handle: TableHandle, desired: int = 1) -> List[Split]:
         return [Split(handle.name, i, desired) for i in range(desired)]

@@ -10,18 +10,23 @@ optimistic dispatch window — an aggregate confirms its group count on the
 host after every merge and replays that merge at a larger capacity on
 overflow.
 
-Operators: TableScan (also with no column read), Filter, Project,
-Aggregate (single step; sum, avg, count, count(*), count_if, min, max,
-arbitrary, bool_and/bool_or, the variance family, covar_pop/covar_samp/
-corr, and none for DISTINCT; global, small-domain, sort- and hash-engine
-grouping; count/sum/avg DISTINCT beside other aggregates, max_by/min_by
-and approx_percentile over the materialized input, sorted once), HashJoin
-(inner, left and full; sort and hash engines), SemiJoin (semi, anti,
-null-aware NOT IN, residual EXISTS), NestedLoopJoin (cross and non-equi
-inner joins), SetOp (UNION [ALL], INTERSECT [ALL], EXCEPT [ALL]; with it
-GROUPING SETS, ROLLUP and CUBE, which the planner lowers to UNION ALL),
-Window, Sort and TopN, Limit, Output, and uncorrelated scalar subqueries
-bound as constants. Anything else raises NotImplementedError naming it.
+Operators: TableScan (also with no column read), OneRow (SELECT without
+FROM, VALUES), Filter, Project, HostProject (cast to varchar and
+date_format, formatted on the host at the query root), Aggregate (single
+step; sum, avg, count, count(*), count_if, min, max, arbitrary,
+bool_and/bool_or, checksum, geometric_mean, the variance family,
+covar_pop/covar_samp/corr, and none for DISTINCT; global, small-domain,
+sort- and hash-engine grouping; count/sum/avg DISTINCT beside other
+aggregates, max_by/min_by and approx_percentile over the materialized
+input, sorted once; approx_distinct is the planner's HyperLogLog lowering
+onto these), HashJoin (inner, left and full; sort and hash engines),
+SemiJoin (semi, anti, null-aware NOT IN, residual EXISTS), NestedLoopJoin
+(cross and non-equi inner joins), SetOp (UNION [ALL], INTERSECT [ALL],
+EXCEPT [ALL]; with it GROUPING SETS, ROLLUP and CUBE, which the planner
+lowers to UNION ALL), Window, Sort and TopN, Limit, Output, and
+uncorrelated scalar subqueries bound as constants. Anything else raises
+NotImplementedError naming it. Statements other than queries run in
+exec/runner.py.
 Not yet here: GRACE/spilled aggregation, radix partitioning, adaptive
 execution, history-based optimization, multiway joins, index joins,
 unnest, and the host-built aggregates (array_agg, map_agg,
@@ -91,8 +96,10 @@ from presto_tpu_torch.plan.nodes import (
     Aggregate,
     Filter,
     HashJoin,
+    HostProject,
     Limit,
     NestedLoopJoin,
+    OneRow,
     Output,
     PlanNode,
     Project,
@@ -103,7 +110,13 @@ from presto_tpu_torch.plan.nodes import (
     TableScan,
     Window,
 )
-from presto_tpu_torch.types import BIGINT, DecimalType, Type, torch_dtype
+from presto_tpu_torch.types import (
+    BIGINT,
+    VARCHAR,
+    DecimalType,
+    Type,
+    torch_dtype,
+)
 
 
 @dataclasses.dataclass
@@ -328,8 +341,91 @@ def _execute_base(base: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
         for b in execute_node(base.child, ctx):
             yield b.select(base.symbols).rename(base.names)
         return
+    if isinstance(base, OneRow):
+        # SELECT without FROM: one live row, no column
+        live = torch.zeros(128, dtype=torch.bool, device=ctx.device)
+        live[0] = True
+        yield Batch([], [], [], live, {})
+        return
+    if isinstance(base, HostProject):
+        yield from _execute_host_project(base, ctx)
+        return
     raise NotImplementedError(
         f"no executor for {type(base).__name__} in presto_tpu_torch yet")
+
+
+# -- host projection -------------------------------------------------------
+
+
+def _host_format_value(kind: str, param, t: Type, v) -> str:
+    """One distinct value as text: cast to varchar renders as the JAX
+    package renders it; date_format takes MySQL's format vocabulary."""
+    import datetime as _d
+
+    if kind == "date_format":
+        from presto_tpu_torch.expr.host import mysql_format_to_strptime
+
+        fmt = mysql_format_to_strptime(str(param))
+        if t.name == "date":
+            dt = _d.datetime(1970, 1, 1) + _d.timedelta(days=int(v))
+        else:
+            dt = _d.datetime(1970, 1, 1) + _d.timedelta(microseconds=int(v))
+        return dt.strftime(fmt)
+    if t.name == "boolean":
+        return "true" if v else "false"
+    if t.name == "date":
+        return str(_d.date(1970, 1, 1) + _d.timedelta(days=int(v)))
+    if t.name == "time":
+        dt = _d.datetime(1970, 1, 1) + _d.timedelta(microseconds=int(v))
+        return dt.strftime("%H:%M:%S.%f")[:-3]
+    if t.name == "timestamp":
+        dt = _d.datetime(1970, 1, 1) + _d.timedelta(microseconds=int(v))
+        return dt.strftime("%Y-%m-%d %H:%M:%S.%f")[:-3]
+    if isinstance(t, DecimalType):
+        import decimal as _dec
+
+        return str(_dec.Decimal(int(v)).scaleb(-t.scale))
+    if t.name == "real":
+        # float32's shortest repr: float(v) would print widened digits
+        return str(np.float32(v))
+    if t.name == "double":
+        return str(float(v))
+    return str(int(v))
+
+
+def _execute_host_project(node: HostProject, ctx: ExecContext
+                          ) -> Iterator[Batch]:
+    """HostProject: the string-producing scalars with no input dictionary
+    (cast to varchar, date_format), on the host at the query root. Each
+    batch formats once per distinct value and its rows take codes in a
+    fresh dictionary. This runs on the host by design, as in the JAX
+    package."""
+    in_types = dict(node.child.output)
+    for b in execute_node(node.child, ctx):
+        live = b.live.cpu().numpy()
+        for sym, kind, in_sym, param in node.items:
+            t = in_types[in_sym]
+            c = b.column(in_sym)
+            vals = c.values.cpu().numpy()
+            if c.hi is not None:
+                # long decimal: the exact value from its two limbs
+                his = c.hi.cpu().numpy()
+                vals = np.array([(int(h) << 32) + int(lo)
+                                 for h, lo in zip(his, vals)], dtype=object)
+            valid = c.valid_mask().cpu().numpy() & live
+            # dead and NULL rows format a 0 that the validity hides
+            safe = np.where(valid, vals, 0 if vals.dtype == object
+                            else np.zeros((), dtype=vals.dtype))
+            uniq, inv = np.unique(safe, return_inverse=True)
+            strs = np.asarray([_host_format_value(kind, param, t, u)
+                               for u in uniq], dtype=object)
+            d, ucodes = Dictionary.encode(strs)
+            codes = np.where(valid, ucodes[inv.reshape(-1)], -1).astype(
+                np.int32)
+            b = b.with_column(sym, VARCHAR, Column(
+                torch.from_numpy(codes).to(ctx.device),
+                torch.from_numpy(valid).to(ctx.device)), dictionary=d)
+        yield b
 
 
 # -- scan -------------------------------------------------------------------
@@ -373,8 +469,11 @@ _SORTED_AGGS = {"approx_percentile", "__approx_percentile_w", "max_by",
 # host (array_agg, map_agg, numeric_histogram, tdigest_agg, approx_set,
 # merge)
 _SUPPORTED_AGGS = ({"sum", "count_star", "count", "count_if", "avg", "min",
-                    "max", "arbitrary", "bool_and", "bool_or"}
+                    "max", "arbitrary", "bool_and", "bool_or", "checksum",
+                    "geometric_mean"}
                    | _VARIANCE_FNS | _COVAR_FNS | _SORTED_AGGS)
+# checksum's contribution of a NULL input
+_CHECKSUM_NULL = -7046029254386353131
 
 
 def _as_double(c: Column, t: Type) -> torch.Tensor:
@@ -384,6 +483,25 @@ def _as_double(c: Column, t: Type) -> torch.Tensor:
     if isinstance(t, DecimalType):
         v = unscale(v, t.scale)
     return v
+
+
+def _content_hash(c: Column, dictionary: Optional[Dictionary]) -> torch.Tensor:
+    """checksum's order-independent per-row hash, the JAX package's bit for
+    bit: a string hashes its entry's content, a double its bit pattern,
+    anything else its int64 value; a NULL adds a fixed constant."""
+    if dictionary is not None:
+        lut = torch.as_tensor(dictionary.content_hash_lut(),
+                              device=c.values.device)
+        v = lut[c.values.to(torch.int64) + 1]
+    elif c.values.is_floating_point():
+        v = c.values.to(torch.float64).view(torch.int64)
+    else:
+        v = c.values.to(torch.int64)
+    h = v * -7070675565921424023  # golden-ratio mix, wrapping like uint64
+    h = h ^ (h >> 31)
+    if c.validity is not None:
+        h = torch.where(c.validity, h, _CHECKSUM_NULL)
+    return h
 
 
 def _input_state(b: Batch, name: str, op: str, a, st: Type,
@@ -418,6 +536,11 @@ def _input_state(b: Batch, name: str, op: str, a, st: Type,
             vals = c.values if c.hi is not None else (c.values & 0xFFFFFFFF)
         return StateCol(vals.to(torch.int64), c.validity, "sum")
     c = b.column(a.arg)
+    if a.fn == "checksum":
+        return StateCol(_content_hash(c, b.dicts.get(a.arg)), None, "sum")
+    if a.fn == "geometric_mean":
+        return StateCol(torch.log(_as_double(c, in_types[a.arg])),
+                        c.validity, "sum")
     if a.fn in ("bool_and", "bool_or"):
         return StateCol(c.values.to(torch.int8), c.validity, op)
     if a.fn in _VARIANCE_FNS:
@@ -699,9 +822,16 @@ def _finalize_aggregate(node: Aggregate, acc: Optional[Batch], steps,
             ok = (n > 1) & (vx > 0) & (vy > 0)
             denom = torch.sqrt(torch.where(ok, vx * vy, 1.0))
             cols.append(Column((n * sxy - sx * sy) / denom, ok))
+        elif a.fn == "geometric_mean":
+            n = acc.column(a.symbol + "$cnt").values.to(torch.float64)
+            ls = acc.column(a.symbol + "$lsum").values
+            ok = n > 0
+            cols.append(Column(torch.exp(ls / torch.where(ok, n, 1.0)), ok))
         elif a.fn in ("bool_and", "bool_or"):
             c = acc.column(a.symbol)
             cols.append(Column(c.values.to(torch.bool), c.validity))
+        elif a.fn == "checksum":
+            cols.append(Column(acc.column(a.symbol).values, None))
         else:
             # count/sum/min/max/arbitrary/count_if, and the sorted
             # aggregates, pass through
@@ -1282,8 +1412,7 @@ def _execute_nljoin(node: NestedLoopJoin, ctx: ExecContext) -> Iterator[Batch]:
         pb = chain(raw)
         np_cap = pb.capacity
         # <= 512 build rows an output batch, about 2^21 output rows at
-        # most; powers of two that divide the build capacity, so every
-        # chunk lies inside it (the JAX package's sizes)
+        # most (the JAX package's sizes)
         c = min(512, max(1, (1 << 21) // max(np_cap, 1)), build.capacity)
         left = [_column_map(col, lambda a: torch.repeat_interleave(a, c, 0))
                 for col in pb.columns]
@@ -1291,9 +1420,14 @@ def _execute_nljoin(node: NestedLoopJoin, ctx: ExecContext) -> Iterator[Batch]:
         dicts = dict(build.dicts)
         dicts.update(pb.dicts)
         for off in range(0, nb, c):
-            right = [_column_map(col, lambda a: a[off:off + c].repeat(np_cap))
+            # a chunk that would run past the build capacity starts at
+            # capacity - c instead and re-reads rows of the chunk before
+            # it, as the JAX package's clamped dynamic slice does (so both
+            # count those pairs twice)
+            lo = min(off, build.capacity - c)
+            right = [_column_map(col, lambda a: a[lo:lo + c].repeat(np_cap))
                      for col in build.columns]
-            live = plive & build.live[off:off + c].repeat(np_cap)
+            live = plive & build.live[lo:lo + c].repeat(np_cap)
             out = Batch(out_names, out_types, left + right, live, dicts)
             if pred is not None:
                 out = out.with_live(out.live & pred(out))

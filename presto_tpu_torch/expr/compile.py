@@ -7,23 +7,33 @@ NULL semantics are SQL three-valued logic; the `live` mask is not
 consulted (dead lanes compute harmlessly).
 
 Strings are dictionary codes: literals resolve against the column's
-Dictionary on the host, so string equality and IN become integer compares.
+Dictionary on the host, so string equality and IN become integer compares,
+and a range compare against a literal compares codes with the literal's
+position in the sorted dictionary. Two string columns on different
+dictionaries compare through a host remap of one into the other.
 
-String functions work on the dictionary, not on the rows: LIKE is a
-boolean table over the dictionary's entries, and substr maps each entry to
-its substring (a new, canonical dictionary plus a code remap), so the
-device does one gather either way.
+String functions work on the dictionary, not on the rows
+(`expr/host.py` holds their Python kernels): a string→string function
+maps each entry to a new, canonical dictionary plus a code remap; a
+string→int, →double or →boolean function, a cast from varchar and LIKE
+are tables over the entries; split/regexp_split feed subscript,
+element_at and cardinality through a [entries, pieces] table. The device
+does one gather either way.
 
-Lowered: comparisons (numeric and date; string equality against a
-literal), BETWEEN, IN, AND/OR/NOT, IS [NOT] NULL, COALESCE, NULLIF, IF
-(CASE), LIKE with its escape, substr, CAST among numeric, decimal and
-date, exact decimal arithmetic, the numeric functions (abs, negation,
-sqrt/exp/ln/floor/ceil/... and sign/truncate, atan2, greatest/least,
-round half away from zero, power), bitwise_*, is_nan/is_finite/
-is_infinite, from_unixtime/to_unixtime, width_bucket, and the date and
-time parts and arithmetic (year/quarter/month/day, day_of_week,
-day_of_year, the time-of-day parts, date_add, date_trunc, date_diff).
-Any other function raises NotImplementedError naming it.
+Lowered: comparisons (numeric, date and string), BETWEEN, IN, AND/OR/NOT,
+IS [NOT] NULL, COALESCE, NULLIF, IF (CASE), LIKE with its escape, the
+string families of expr/host.py (substr, upper, concat and ||,
+split_part, regexp_*, url, hash, json, varbinary and IP functions,
+length, strpos, starts_with, ...), CAST among numeric, decimal and date
+and from varchar, exact decimal arithmetic, the numeric functions (abs,
+negation, sqrt/exp/ln/floor/ceil/... and sign/truncate, atan2,
+greatest/least, round half away from zero, power), bitwise_*,
+is_nan/is_finite/is_infinite, from_unixtime/to_unixtime, width_bucket,
+the date and time parts and arithmetic (year/quarter/month/day,
+day_of_week, day_of_year, the time-of-day parts, date_add, date_trunc,
+date_diff), and approx_distinct's __hll_reg/__hll_rank. Functions over
+ARRAY/MAP values and any other function raise NotImplementedError naming
+it; a cast to varchar runs on the host (exec/runtime.py HostProject).
 
 Division of a float by a plan-time constant multiplies by its reciprocal,
 as XLA compiles the JAX package's division, so both round alike.
@@ -38,7 +48,23 @@ import torch
 
 from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.dictionary import Dictionary
+from presto_tpu_torch.expr.host import (
+    HLL_M,
+    _STR_INT_NULLABLE,
+    _STR_PRED,
+    _STR_TO_FLOAT,
+    _STR_TO_INT,
+    _STR_TO_STR,
+    _str_float_pyfn,
+    _str_int_pyfn,
+    _str_pred_pyfn,
+    _str_xform_pyfn,
+    _xform_parts,
+    parse_string_to,
+    regexp_split_pieces,
+)
 from presto_tpu_torch.expr.ir import Call, Constant, InputRef, RowExpression
+from presto_tpu_torch.ops.hashing import splitmix64
 from presto_tpu_torch.types import (
     BOOLEAN,
     DOUBLE,
@@ -46,6 +72,7 @@ from presto_tpu_torch.types import (
     Type,
     is_floating,
     is_integral,
+    is_structural,
     torch_dtype,
 )
 
@@ -90,54 +117,6 @@ def like_to_regex(pattern: str, escape: str | None = None) -> str:
             out.append(re.escape(c))
         i += 1
     return "^" + "".join(out) + "$"
-
-
-# string→string functions evaluated over the dictionary on the host
-_STR_TO_STR = {"substr"}
-
-
-def _sql_substr(s: str, start: int, length: int | None) -> str:
-    """SQL substr: 1-based; a negative start counts from the end."""
-    n = len(s)
-    if start == 0:
-        return ""
-    if start > 0:
-        i = start - 1
-    else:
-        i = n + start
-        if i < 0:
-            return ""
-    if i >= n:
-        return ""
-    if length is None:
-        return s[i:]
-    if length <= 0:
-        return ""
-    return s[i : i + length]
-
-
-def _str_xform_pyfn(fn: str, cargs: tuple):
-    """Host python fn(str) -> str for a string transform with constant
-    arguments."""
-    if fn == "substr":
-        start = int(cargs[0])
-        length = (int(cargs[1]) if len(cargs) > 1 and cargs[1] is not None
-                  else None)
-        return lambda s: _sql_substr(s, start, length)
-    raise NotImplementedError(
-        f"function {fn} is not supported by presto_tpu_torch yet")
-
-
-def _xform_parts(e: Call):
-    """Split a string-function call into (string operand, constant args)."""
-    consts = []
-    for a in e.args[1:]:
-        if not isinstance(a, Constant):
-            raise NotImplementedError(
-                f"{e.fn}: non-constant argument {a} not supported "
-                "(dictionary transforms need plan-time constants)")
-        consts.append(a.value)
-    return e.args[0], tuple(consts)
 
 
 def _civil_from_days(z: torch.Tensor):
@@ -192,6 +171,9 @@ class CompileContext:
         if isinstance(e, Call):
             if e.fn in _STR_TO_STR:
                 return self.transformed(e)[0]
+            if e.fn in ("subscript", "element_at") and _is_split(e.args[0]):
+                # the pieces' dictionary, not the split operand's
+                return self.split_tables(e.args[0])[0]
             for a in e.args:
                 d = self.dict_for(a)
                 if d is not None:
@@ -200,14 +182,75 @@ class CompileContext:
 
     def transformed(self, e: Call):
         """(new dictionary, code remap, operand) of a string transform,
-        memoized on the operand's dictionary."""
+        memoized on the operand's dictionary; remap None means the result
+        is NULL (a NULL constant inside concat)."""
         operand, cargs = _xform_parts(e)
+        if cargs is None:
+            return None, None, operand
         d = self.dict_for(operand)
         if d is None:
             raise ValueError(f"string function {e.fn} needs a dictionary "
                              "operand")
         nd, remap = d.transform((e.fn, cargs), _str_xform_pyfn(e.fn, cargs))
         return nd, remap, operand
+
+    def split_tables(self, e: Call):
+        """(pieces dictionary, [entries + 1, W] piece codes, [entries + 1]
+        piece counts, operand) of split/regexp_split over its operand's
+        dictionary."""
+        operand, cargs = _xform_parts(e)
+        d = self.dict_for(operand)
+        if d is None:
+            raise ValueError(f"{e.fn} needs a dictionary operand")
+        return _split_tables(d, e.fn, cargs) + (operand,)
+
+    def table(self, arr: np.ndarray) -> torch.Tensor:
+        """A host table over a dictionary, on the batch's device."""
+        return torch.as_tensor(arr, device=self.device)
+
+    def gather(self, arr: np.ndarray, operand: RowExpression):
+        """Rows' entries of a host table indexed by code + 1 (row 0 holds
+        the NULL code -1), with the operand's validity."""
+        codes, valid = _eval(operand, self)
+        return self.table(arr)[codes.to(torch.int64) + 1], valid
+
+
+def _is_split(e: RowExpression) -> bool:
+    return isinstance(e, Call) and e.fn in ("split", "regexp_split")
+
+
+def _split_tables(d: Dictionary, fn: str, cargs: tuple):
+    """split/regexp_split over a dictionary: each entry's pieces →
+    (pieces dictionary, [len + 1, W] code plane, [len + 1] sizes), row 0
+    for NULL. Memoized on the dictionary like Dictionary.transform."""
+    key = ("__split", fn, cargs)
+    hit = d._memo.get(key)
+    if hit is not None:
+        return hit
+    if fn == "split":
+        delim = str(cargs[0])
+        limit = int(cargs[1]) if len(cargs) > 1 else None
+        # SQL limit = the most pieces; the last one takes the rest
+        splitter = (lambda s: s.split(delim) if limit is None
+                    else s.split(delim, limit - 1))
+    else:
+        splitter = regexp_split_pieces(str(cargs[0]))
+    pieces = [splitter(str(v)) for v in d.values]
+    from presto_tpu_torch.dictionary import safe_str_array
+
+    uniq = sorted({p for ps in pieces for p in ps}) or [""]
+    ed = Dictionary(np.unique(safe_str_array(
+        np.asarray(uniq, dtype=object))))
+    w = max((len(ps) for ps in pieces), default=1) or 1
+    n = len(d.values)
+    plane = np.zeros((n + 1, w), np.int32)
+    sizes = np.zeros(n + 1, np.int32)
+    for i, ps in enumerate(pieces):
+        sizes[i + 1] = len(ps)
+        for j, p in enumerate(ps):
+            plane[i + 1, j] = ed.code_of(p)
+    d._memo[key] = (ed, plane, sizes)
+    return ed, plane, sizes
 
 
 def string_output_dictionary(e: RowExpression) -> Dictionary | None:
@@ -328,8 +371,33 @@ _CMP = {
 }
 
 
+# functions over ARRAY/MAP values; the polymorphic names only when their
+# first argument is one
+_STRUCT_ONLY_FNS = {
+    "array_ctor", "array_position", "array_min", "array_max", "array_sum",
+    "array_average", "array_distinct", "array_sort", "slice", "sequence",
+    "repeat", "map", "map_keys", "map_values",
+    "transform", "filter", "reduce", "any_match", "all_match", "none_match",
+    "transform_values", "map_filter",
+    "array_union", "array_intersect", "array_except", "arrays_overlap",
+    "map_concat", "zip_with", "split", "regexp_split", "array_remove",
+}
+_STRUCT_POLY_FNS = {"cardinality", "contains", "concat", "element_at",
+                    "subscript"}
+
+
 def _eval_call(e: Call, ctx: CompileContext):
     fn = e.fn
+
+    # ---- split pieces: the only structural values the port evaluates ---
+    if fn in ("subscript", "element_at", "cardinality") and _is_split(
+            e.args[0]):
+        return _eval_split_access(e, ctx)
+    if fn in _STRUCT_ONLY_FNS or (fn in _STRUCT_POLY_FNS and e.args
+                                  and is_structural(e.args[0].type)):
+        raise NotImplementedError(
+            f"function {fn} over arrays and maps is not supported by "
+            "presto_tpu_torch yet")
 
     # ---- comparisons (incl. dictionary-code string compares) -------------
     if fn in _CMP:
@@ -462,18 +530,35 @@ def _eval_call(e: Call, ctx: CompileContext):
         if d is None:
             raise ValueError("LIKE on non-dictionary column")
         rx = re.compile(like_to_regex(str(pat.value), escape))
-        table = d.int_lut(("like", pat.value, escape),
-                          lambda s: rx.match(s) is not None, dtype=np.bool_)
-        vv, vvalid = _eval(val, ctx)
-        return (torch.as_tensor(table, device=ctx.device)[vv.to(torch.int64) + 1],
-                vvalid)
+        return ctx.gather(d.int_lut(("like", pat.value, escape),
+                                    lambda s: rx.match(s) is not None,
+                                    dtype=np.bool_), val)
 
-    # ---- string transforms over the dictionary ---------------------------
+    # ---- string functions over the dictionary ---------------------------
     if fn in _STR_TO_STR:
         _, remap, operand = ctx.transformed(e)
-        codes, valid = _eval(operand, ctx)
-        return (torch.as_tensor(remap, device=ctx.device)[
-            codes.to(torch.int64) + 1], valid)
+        if remap is None:  # a NULL constant inside concat: NULL
+            cap = ctx.batch.capacity
+            return (torch.zeros(cap, dtype=torch.int32, device=ctx.device),
+                    torch.zeros(cap, dtype=torch.bool, device=ctx.device))
+        out, valid = ctx.gather(remap, operand)
+        if bool((remap[1:] < 0).any()):
+            # the transform gave NULL for some entries (regexp_extract
+            # without a match, an absent json path): a negative new code
+            notnull = out >= 0
+            valid = notnull if valid is None else valid & notnull
+        return out, valid
+    if fn in _STR_TO_FLOAT or fn in _STR_TO_INT or fn in _STR_PRED:
+        return _eval_string_table(e, ctx)
+
+    # ---- HyperLogLog primitives (approx_distinct's lowering) -------------
+    if fn in ("__hll_reg", "__hll_rank"):
+        return _eval_hll(e, ctx)
+
+    if fn == "__host_date_format":
+        raise NotImplementedError(
+            "date_format is supported in the top-level SELECT list only "
+            "(it is a host finishing projection)")
 
     if fn == "cast":
         return _eval_cast(e, ctx)
@@ -781,6 +866,91 @@ def _qsk_bucket(e: Call, ctx):
     return ((bits ^ flip) >> 40) & ((1 << 24) - 1), valid
 
 
+def _eval_string_table(e: Call, ctx: CompileContext):
+    """A string→double, →int or →boolean function as a table over its
+    operand's dictionary entries; an entry whose function gives None is
+    NULL (a parallel null table, evaluated once an entry)."""
+    fn = e.fn
+    operand, cargs = _xform_parts(e)
+    d = ctx.dict_for(operand)
+    if d is None:
+        raise ValueError(f"{fn} needs a dictionary operand")
+    if fn in _STR_PRED:
+        return ctx.gather(d.int_lut((fn, cargs), _str_pred_pyfn(fn, cargs),
+                                    dtype=np.bool_), operand)
+    if fn in _STR_TO_INT and fn not in _STR_INT_NULLABLE:
+        return ctx.gather(d.int_lut((fn, cargs), _str_int_pyfn(fn, cargs)),
+                          operand)
+    is_float = fn in _STR_TO_FLOAT
+    pyfn = (_str_float_pyfn if is_float else _str_int_pyfn)(fn, cargs)
+    memo: dict = {}
+
+    def once(s):
+        if s not in memo:
+            memo[s] = pyfn(s)
+        return memo[s]
+
+    if is_float:
+        table = d.int_lut((fn, cargs, "v"),
+                          lambda s: 0.0 if once(s) is None else once(s),
+                          dtype=np.float64)
+    else:
+        table = d.int_lut((fn, cargs, "v"), lambda s: once(s) or 0)
+    nulls = d.int_lut((fn, cargs, "null"), lambda s: once(s) is None,
+                      dtype=np.bool_)
+    codes, valid = _eval(operand, ctx)
+    idx = codes.to(torch.int64) + 1
+    notnull = ~ctx.table(nulls)[idx]
+    out = ctx.table(table)[idx]
+    if not is_float:
+        out = out.to(torch_dtype(e.type.dtype))  # DATE tables are int32
+    return out, notnull if valid is None else valid & notnull
+
+
+def _eval_split_access(e: Call, ctx: CompileContext):
+    """cardinality, subscript and element_at of split/regexp_split: the
+    split tables gathered by the operand's codes, then each row's piece
+    (1-based; a negative index counts from the end; out of range is
+    NULL, as in the JAX package)."""
+    _, plane, sizes, operand = ctx.split_tables(e.args[0])
+    codes, rvalid = _eval(operand, ctx)
+    idx = codes.to(torch.int64) + 1
+    n = ctx.table(sizes)[idx].to(torch.int64)
+    if e.fn == "cardinality":
+        return n, rvalid
+    iv, ivalid = _eval_arg(e.args[1], ctx)
+    iv = torch.broadcast_to(iv.to(torch.int64), n.shape)
+    pos = torch.where(iv >= 0, iv - 1, n + iv)
+    valid = (pos >= 0) & (pos < n)
+    posc = torch.clamp(pos, 0, plane.shape[1] - 1)
+    out = ctx.table(plane)[idx, posc]
+    return out, _and_valid(_and_valid(valid, ivalid), rvalid)
+
+
+def _eval_hll(e: Call, ctx: CompileContext):
+    """__hll_reg(x): the low log2(HLL_M) bits of x's 64-bit content hash;
+    __hll_rank(x): 1 + the leading zeros of its top 32 bits (1..33). The
+    JAX package's hash, bit for bit: strings hash their entries' content,
+    doubles their bit pattern with -0.0 as +0.0."""
+    a = e.args[0]
+    av, avalid = _eval(a, ctx)
+    if a.type.is_string:
+        lut = ctx.dict_for(a).content_hash_lut()
+        h = splitmix64(ctx.table(lut)[av.to(torch.int64) + 1])
+    elif av.is_floating_point():
+        x = av.to(torch.float64)
+        bits = torch.where(x == 0.0, 0, x.view(torch.int64))
+        h = splitmix64(bits)
+    else:
+        h = splitmix64(av.to(torch.int64))
+    if e.fn == "__hll_reg":
+        return h & (HLL_M - 1), avalid
+    w = (h >> 32) & 0xFFFFFFFF
+    # floor(log2(w)) + 1 is w's bit length: frexp's exponent, exactly
+    _, bitlen = torch.frexp(w.to(torch.float64))
+    return torch.where(w == 0, 33, 33 - bitlen.to(torch.int64)), avalid
+
+
 def _numeric_align(lv: torch.Tensor, rv: torch.Tensor):
     """Align device representations for comparison (the analyzer makes the
     SQL types comparable; decimals arrive same-scale via casts)."""
@@ -791,19 +961,40 @@ def _numeric_align(lv: torch.Tensor, rv: torch.Tensor):
 
 
 def _string_compare(op: str, l: RowExpression, r: RowExpression, ctx):
-    """String (in)equality against a literal, on dictionary codes."""
+    """String compares on dictionary codes. Dictionaries are sorted, so a
+    range compare against a literal compares codes with the literal's
+    position, and two columns on one dictionary compare codes. Columns on
+    different dictionaries compare for (in)equality through a remap of
+    one into the other; a range compare across them is refused, as in the
+    JAX package."""
     if isinstance(l, Constant) and not isinstance(r, Constant):
-        l, r = r, l
-    if op not in ("eq", "ne") or not isinstance(r, Constant):
-        raise NotImplementedError(
-            "string comparisons other than (in)equality with a literal are "
-            "not supported by presto_tpu_torch yet")
-    d = ctx.dict_for(l)
-    if d is None:
-        raise ValueError(f"no dictionary for {l}")
+        flip = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+        return _string_compare(flip.get(op, op), r, l, ctx)
+    if isinstance(r, Constant):
+        d = ctx.dict_for(l)
+        if d is None:
+            raise ValueError(f"no dictionary for {l}")
+        s = str(r.value)
+        lv, lvalid = _eval(l, ctx)
+        if op in ("eq", "ne"):
+            m = lv == d.code_of(s)
+            return (m if op == "eq" else ~m), lvalid
+        if op in ("lt", "le"):
+            return lv < d.range_codes(s, "left" if op == "lt" else "right"), \
+                lvalid
+        return lv >= d.range_codes(s, "right" if op == "gt" else "left"), \
+            lvalid
+    ld, rd = ctx.dict_for(l), ctx.dict_for(r)
     lv, lvalid = _eval(l, ctx)
-    m = lv == d.code_of(str(r.value))
-    return (m if op == "eq" else ~m), lvalid
+    rv, rvalid = _eval(r, ctx)
+    valid = _and_valid(lvalid, rvalid)
+    if ld is rd or ld is None or rd is None:
+        return _CMP[op](lv, rv), valid
+    if op in ("eq", "ne"):
+        lv2 = ctx.table(ld.map_to(rd))[lv.to(torch.int64) + 1]
+        m = (lv2 == rv) & (lv2 >= 0)
+        return (m if op == "eq" else ~m), valid
+    raise NotImplementedError("cross-dictionary range comparison")
 
 
 def _eval_arith(e: Call, ctx):
@@ -925,10 +1116,33 @@ def _decimal_div(lv, rv, lt, rt, out_t, valid):
 def _eval_cast(e: Call, ctx):
     src = e.args[0]
     st, tt = src.type, e.type
-    if st.is_string or tt.is_string:
+    if st.is_string and not tt.is_string:
+        # varchar → number, date or boolean: each dictionary entry parsed
+        # on the host, one gather on the device; an entry that does not
+        # parse is NULL (try(cast(...)) is the same), as in the JAX package
+        d = ctx.dict_for(src)
+        if d is None:
+            raise ValueError("cast from varchar requires a dictionary")
+
+        def val_of(s):
+            v = parse_string_to(tt, s)
+            return 0 if v is None else v
+
+        vlut = d.int_lut(("cast_val", tt.name), val_of,
+                         dtype=np.float64 if is_floating(tt) else np.int64)
+        olut = d.int_lut(("cast_ok", tt.name),
+                         lambda s: parse_string_to(tt, s) is not None,
+                         dtype=np.bool_)
+        codes, valid = _eval(src, ctx)
+        idx = codes.to(torch.int64) + 1
+        ok = ctx.table(olut)[idx]
+        return (ctx.table(vlut)[idx].to(torch_dtype(tt.dtype)),
+                ok if valid is None else valid & ok)
+    if tt.is_string and not st.is_string:
         raise NotImplementedError(
-            "casts from or to varchar are not supported by presto_tpu_torch "
-            "yet")
+            "cast to varchar from non-string types is supported in the "
+            "top-level SELECT list only (it runs as a HostProject "
+            "finishing projection)")
     v, valid = _eval_arg(src, ctx)
     if st == tt:
         return v, valid

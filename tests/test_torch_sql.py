@@ -1,8 +1,10 @@
 """The port's SemiJoin, outer joins, aggregates, expressions, scalar
 subqueries, LIMIT, column-less scans, windows, set operations, nested-loop
-joins and numeric and date functions against the JAX package, on small
-in-memory tables (the same data registered in both packages' memory
-connectors).
+joins, numeric and date functions, string functions and compares, casts
+from and to varchar, SELECT without FROM and VALUES, approx_distinct,
+geometric_mean and checksum, and varbinary, ipaddress and ipprefix
+columns against the JAX package, on small in-memory tables (the same data
+registered in both packages' memory connectors).
 
 Each SQL runs once through the JAX package's per-batch path and through
 the port under breaker_engine sort and hash; every frame must equal the
@@ -21,11 +23,18 @@ The window, set-operation and nested-loop cases are the LocalRunner
 queries of tests/test_window.py, tests/test_setops.py and
 tests/test_nljoin.py over the same generated tables (renamed w*, s*/m*
 and n*), plus NaN, +-inf and -0.0 keys; the SQL those files expect the
-planner to refuse raises the same error in the port.
+planner to refuse raises the same error in the port. The string, cast,
+sketch and column-type cases take their SQL and tables from
+tests/test_functions.py, test_function_breadth.py, test_function_batch2.py,
+test_host_project.py, test_time_varbinary.py, test_ipaddress.py,
+test_sketches.py and test_hll_values.py, several functions to a SELECT.
+approx_distinct and checksum are exact here: both packages compute the
+same 64-bit hashes.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from presto_tpu.catalog.memory import MemoryConnector as RefMemory
 from presto_tpu.connector import Catalog as RefCatalog
@@ -81,7 +90,45 @@ def _tables():
     out.update(_window_tables())
     out.update(_setop_tables())
     out.update(_nljoin_tables())
+    out.update(_surface_tables())
     return out
+
+
+def _surface_tables():
+    """The tables of tests/test_time_varbinary.py, test_ipaddress.py,
+    test_functions.py (its URL table and varchar casts),
+    test_function_breadth.py (its JSON table), and a float32 NaN beside
+    NULLs."""
+    return {
+        "blobs": ({"k": [1, 2, 3, 4],
+                   "data": [b"hello", b"\x00\xff\x10", b"caf\xc3\xa9",
+                            None]}, {}),
+        "ips": ({"id": list(range(7)),
+                 "ip": ["10.0.0.1", "::ffff:10.0.0.1", "10.0.0.2",
+                        "10.0.255.255", "10.1.0.0", "2001:db8::1", None]},
+                {"ip": "ipaddress"}),
+        "nets": ({"net": ["10.0.0.0/8", "10.0.0.0/16", "192.168.0.0/16",
+                          "9.0.0.0/8"]}, {"net": "ipprefix"}),
+        "raw": ({"s": ["1.2.3.4", "not-an-ip", "999.1.1.1"]}, {}),
+        "u": ({"id": [0, 1, 2, 3],
+               "url": ["https://example.com/a/b?x=1#frag",
+                       "http://presto.io/docs",
+                       "https://example.com/?q=hello%20world", "not a url"],
+               "s": ["abc", "hello", "abc", ""]}, {}),
+        "j": ({"id": [0, 1, 2],
+               "js": ['{"a": 1, "b": {"c": "hi"}, "arr": [1,2,3]}',
+                      '{"a": 2, "arr": []}', 'not json'],
+               "ja": ['[1,2,3]', '[]', '{"x":1}']}, {}),
+        "c": ({"id": [0, 1, 2, 3, 4],
+               "s": ["42", "3.5", "oops", "7", ""],
+               "ds": ["2021-01-02", "bad", "1999-12-31", "2000-02-29",
+                      "2020-06-15"],
+               "bs": ["true", "FALSE", "1", "nope", "t"],
+               "ts": ["2021-03-04 05:06:07", "1999-12-31 23:59:59",
+                      "not a date", "2021-03-04 05:06:07",
+                      "1970-01-01 00:00:00"]}, {}),
+        "nanx": ({"x": [1.0, np.float32("nan"), None, 2.0]}, {}),
+    }
 
 
 def _window_tables():
@@ -535,6 +582,116 @@ CASES = {
                           "group by nb.bk order by nb.bk",
     "nl_strings_nulls": "select a.id, b.id bid, a.s, b.s bs from a, b "
                         "where a.k < b.k order by a.id, b.id",
+    # -- string functions (tests/test_functions.py, test_function_breadth.py,
+    # test_function_batch2.py) ------------------------------------------------
+    "str_transforms": "select id, upper(s) up, lower(s) lo, trim(s) t, "
+                      "reverse(s) r, substr(s, 2, 3) sub, "
+                      "replace(s, 'a', '/') rep, length(s) n, "
+                      "strpos(s, 'a') p, 'pre:' || s || ':post' c, "
+                      "concat('a', s, 'b') c2, lpad(s, 6, '*') lp, "
+                      "rpad(s, 6, '*') rp, s || null cn from a order by id",
+    "str_predicates_regexp": "select id, starts_with(s, 'a') sw, "
+                             "ends_with(s, 'y') ew, regexp_like(s, '^[a-c]') "
+                             "rx, regexp_extract(s, '(a)(.)', 2) re, "
+                             "regexp_replace(s, 'a+', 'A') rr, "
+                             "split_part(s, '_', 2) sp, codepoint(substr("
+                             "s || 'z', 1, 1)) cp, levenshtein_distance(s, "
+                             "'apple') ld from a where contains(s, 'a') "
+                             "or s is null order by id",
+    "str_transform_group_key": "select upper(substr(s, 1, 1)) k, count(*) n, "
+                               "min(lower(s)) lo from a group by 1 order by 1",
+    "str_split_pieces": "select id, split(s, '_')[1] p1, "
+                        "element_at(split(s, 'a'), -1) pl, "
+                        "cardinality(split(s, 'a')) n, "
+                        "element_at(regexp_split(s, '[ab]'), 2) r2, "
+                        "element_at(split(s, 'a', 2), 5) oob from a "
+                        "order by id",
+    "str_url_hash_base64": "select id, url_extract_host(url) h, "
+                           "url_extract_path(url) p, "
+                           "url_extract_protocol(url) pr, "
+                           "url_extract_query(url) q, "
+                           "url_decode(url_encode(s)) r, md5(s) m, "
+                           "sha256(s) sh, to_base64(s) b64, "
+                           "from_base64(to_base64(s)) rb from u order by id",
+    "str_json": "select id, json_extract_scalar(js, '$.a') a, "
+                "json_extract_scalar(js, '$.b.c') c, json_array_length(ja) n, "
+                "json_extract(js, '$.b') jb, json_array_get(ja, 0) a0, "
+                "json_size(js, '$.arr') nsz, json_format(json_parse(ja)) fmt, "
+                "json_array_contains(ja, 2) has2, is_json_scalar(ja) sc "
+                "from j order by id",
+    # -- string compares --------------------------------------------------
+    "str_range_literal": "select count_if(s < 'c') lt, "
+                         "count_if(s <= 'banana') le, count_if(s > 'b') gt, "
+                         "count_if(s >= 'bx') ge, "
+                         "count_if(s between 'a' and 'c') bt, "
+                         "count_if('c' > s) flipped, count(*) n from a",
+    "str_compare_columns": "select a.id, b.id bid, a.s = b.s eq, "
+                           "a.s <> b.s ne from a join b on a.k = b.k "
+                           "order by a.id, b.id",
+    "str_range_same_dictionary": "select x.id, y.id yid, x.s < y.s lt, "
+                                 "x.s >= y.s ge from a x join a y "
+                                 "on x.k = y.k order by x.id, y.id",
+    # -- casts from and to varchar (tests/test_functions.py,
+    # test_host_project.py) --------------------------------------------------
+    "cast_from_varchar": "select id, cast(s as bigint) i, cast(s as double) d, "
+                         "try(cast(s as bigint)) ti, cast(bs as boolean) bb, "
+                         "cast(ds as date) dd, try_cast(s as decimal(10,2)) "
+                         "dec, date_parse(ts, '%Y-%m-%d %H:%i:%s') dp, "
+                         "from_iso8601_date(ds) fd from c order by id",
+    "cast_from_varchar_aggregated": "select sum(cast(s as double)) t, "
+                                    "count_if(cast(ds as date) >= "
+                                    "date '2020-01-01') n from c",
+    "cast_to_varchar": "select id, cast(k as varchar) ks, cast(d as varchar) "
+                       "ds, cast(v as varchar) vs, cast(f as varchar) fs, "
+                       "cast(b as varchar) bs, date_format(d, '%Y/%m/%d') df "
+                       "from a order by id",
+    "cast_to_varchar_over_aggregate": "select date_format(d, '%Y-%m') ym, "
+                                      "cast(sum(v) as varchar) sv, "
+                                      "cast(count(*) as varchar) n from a "
+                                      "group by d order by d",
+    # -- SELECT without FROM, VALUES ------------------------------------------
+    "no_from": "select 1 + 2 x, 'x' || 'y' s, upper('abc') u, "
+               "bit_length('\u00e9') bl, cast(timestamp '2021-03-04 "
+               "05:06:07.25' as varchar) ts",
+    "values": "select * from (values (1, 'a'), (2, 'b'), "
+              "(3, cast(null as varchar))) as v(k, s) order by k",
+    # -- approx_distinct, geometric_mean, checksum (tests/test_sketches.py,
+    # test_hll_values.py, test_function_breadth.py) --------------------------
+    "hll_grouped_nulls": "select s, approx_distinct(k) d from a group by s "
+                         "order by s",
+    "hll_doubles": "select approx_distinct(f) d from a",
+    "hll_strings": "select b, approx_distinct(s) d from a group by b "
+                   "order by b",
+    "geomean_checksum": "select b, geometric_mean(f) gm, checksum(k) ck, "
+                        "checksum(s) cs, checksum(f) cf, checksum(v) cv, "
+                        "count(*) n from a group by b order by b",
+    "geomean_checksum_beside_distinct":
+        "select w, approx_distinct(k) d, geometric_mean(k + 1) g, "
+        "checksum(k) c from r group by w order by w",
+    # -- varbinary, ipaddress, ipprefix (tests/test_time_varbinary.py,
+    # test_ipaddress.py) -------------------------------------------------------
+    "varbinary": "select k, data, length(data) n, to_hex(data) hx, "
+                 "from_utf8(data) s, to_hex(sha256(data)) sh, "
+                 "to_hex(to_utf8(from_utf8(data))) rt from blobs order by k",
+    "varbinary_join_group": "select b1.data d, count(*) c from blobs b1 "
+                            "join blobs b2 on b1.data = b2.data "
+                            "group by b1.data order by c desc, d",
+    "ipaddress": "select id, cast(ip as varchar) v, "
+                 "cast(ip_prefix(ip, 16) as varchar) p, "
+                 "ip = cast('10.0.0.1' as ipaddress) one from ips order by id",
+    "ipaddress_group": "select cast(ip as varchar) v, count(*) c from ips "
+                       "group by ip order by ip",
+    "ipprefix": "select cast(net as varchar) v, "
+                "is_subnet_of(net, cast('10.0.1.1' as ipaddress)) sub, "
+                "cast(ip_subnet_min(net) as varchar) lo from nets "
+                "order by net",
+    "ip_counts": "select count(*) c, count(distinct ip) d, count_if("
+                 "is_subnet_of(cast('10.0.0.0/16' as ipprefix), ip)) s "
+                 "from ips",
+    "ip_from_varchar": "select cast(cast(s as ipaddress) as varchar) v "
+                       "from raw order by s",
+    # -- a float32 NaN is a value, not a NULL -----------------------------------
+    "float32_nan_counts": "select count(x) nx, count(*) n from nanx",
 }
 
 
@@ -561,8 +718,10 @@ def test_sql_matches_reference(catalogs, name):
                             rtol=FLOAT_WINDOW_RTOL.get(name, 1e-12))
 
 
-# SQL the planner refuses, in both packages (the error cases of
-# tests/test_window.py and tests/test_nljoin.py)
+# SQL refused in both packages (the error cases of tests/test_window.py,
+# tests/test_nljoin.py and tests/test_host_project.py; a range compare of
+# strings on two dictionaries; a cast to varchar below the SELECT list,
+# which has no dictionary to cast back from)
 @pytest.mark.parametrize("sql, error", [
     ("select lag(g, 1, 0) over (partition by g order by k) x from w",
      "AnalysisError"),
@@ -581,10 +740,16 @@ def test_sql_matches_reference(catalogs, name):
     ("select sum(v) over (order by k rows 2 following) s from wr",
      "ParseError"),
     ("select * from na left join nb on na.av < nb.lo", "AnalysisError"),
+    ("select a.s < b.s from a join b on a.k = b.k", "NotImplementedError"),
+    ("select distinct cast(k as varchar) from a", "AnalysisError"),
+    ("select id from a where date_format(d, '%Y') = '2021'", "ValueError"),
+    ("select sum(cast(cast(k as varchar) as bigint)) s from a", "ValueError"),
 ], ids=["lag_string_default", "lag_fractional_default", "range_two_keys",
         "range_string_key", "range_timestamp_key", "range_wide_decimal",
         "range_shorthand_following", "rows_shorthand_following",
-        "outer_non_equi"])
+        "outer_non_equi", "string_range_across_dictionaries",
+        "distinct_host_projection", "host_projection_in_filter",
+        "varchar_cast_inside_an_expression"])
 def test_refused_sql_raises_like_reference(catalogs, sql, error):
     ref, port = catalogs
     with pytest.raises(Exception) as want:
@@ -621,3 +786,82 @@ def test_residual_semijoin_spans_chunks(catalogs):
     for lo in range(0, len(pk), BATCH_ROWS):
         pairs = sum(int((rk == k).sum()) for k in pk[lo:lo + BATCH_ROWS])
         assert pairs > 2 * BATCH_ROWS
+
+
+def test_float32_nan_is_a_value(catalogs):
+    """In an object column a float32 NaN is a value; None and a Python
+    float NaN are NULL, as the JAX package ingests them."""
+    _, port = catalogs
+    got = LocalRunner(port, device="cpu").run(
+        "select count(x) nx, count(*) n from nanx")
+    assert (got.nx[0], got.n[0]) == (3, 4)
+
+
+def test_nljoin_last_chunk_clamps_like_reference():
+    """1,200 build rows in 256-row scan batches make a build capacity of
+    1,280, which the 512-row chunk does not divide: the last chunk starts
+    at capacity - 512 and re-reads rows of the chunk before it, as the JAX
+    package's clamped slice does, so both count those pairs twice (a
+    reference fault the port keeps). At 512-row batches the capacity is
+    1,536 and both count each pair once."""
+    rng = np.random.default_rng(5)
+    t = {"h": rng.integers(0, 2, 3000), "x": rng.random(3000) * 0.01}
+    u = {"uw": rng.integers(0, 2, 1200), "uk": rng.integers(0, 1000, 1200)}
+    rc, pc = RefMemory(), MemoryConnector()
+    for name, data in (("t", t), ("u", u)):
+        rc.add_table(name, data)
+        pc.add_table(name, data)
+    ref, port = RefCatalog(), Catalog()
+    ref.register("m", rc, default=True)
+    port.register("m", pc, default=True)
+    sql = ("select count(*) c from t, u where t.h = 0 and u.uw = 1 "
+           "and t.x > u.uk / 1000.0")
+    counts = {}
+    for rows in (256, 512):
+        want = int(RefRunner(ref, RefConfig(fragment_fusion=False,
+                                            batch_rows=rows)).run(sql).c[0])
+        got = LocalRunner(port, ExecConfig(batch_rows=rows),
+                          device="cpu").run(sql)
+        assert int(got.c[0]) == want, rows
+        counts[rows] = want
+    assert counts == {256: 56_848, 512: 44_880}
+
+
+def test_hll_register_and_rank_bit_exact():
+    """approx_distinct's register and rank of each row, the port's against
+    the JAX package's, bit for bit, over more distinct values than the
+    estimator's linear-counting range (where the ranks decide the
+    estimate): int64 keys, doubles with -0.0, NaN and infinities, and
+    strings by their content."""
+    from presto_tpu.batch import Batch as RefBatch
+    from presto_tpu.dictionary import Dictionary as RefDictionary
+    from presto_tpu.expr import compile as rc
+    from presto_tpu.expr import ir as rir
+    from presto_tpu_torch.batch import Batch
+    from presto_tpu_torch.dictionary import Dictionary
+    from presto_tpu_torch.expr import compile as pc
+    from presto_tpu_torch.expr import ir as pir
+
+    rng = np.random.default_rng(3)
+    n = 20_000
+    x = rng.normal(0, 1e6, n)
+    x[:5] = [-0.0, 0.0, np.nan, np.inf, -np.inf]
+    words = np.array([f"user-{i:06d}" for i in rng.integers(0, 15_000, n)])
+    data = {"k": rng.integers(-(1 << 62), 1 << 62, n), "x": x}
+    rdict, codes = RefDictionary.encode(words)
+    pdict, _ = Dictionary.encode(words)
+    data["s"] = codes
+    names = {"k": "bigint", "x": "double", "s": "varchar"}
+    rb = RefBatch.from_numpy(data, {c: ref_type(t) for c, t in names.items()},
+                             dicts={"s": rdict})
+    pb = Batch.from_numpy(data, {c: parse_type(t) for c, t in names.items()},
+                          torch.device("cpu"), dicts={"s": pdict})
+    for col, t in names.items():
+        for fn in ("__hll_reg", "__hll_rank"):
+            want, _ = rc.compile_expr(rir.Call(ref_type("bigint"), fn, (
+                rir.InputRef(ref_type(t), col),)))(rb)
+            got, _ = pc.compile_expr(pir.Call(parse_type("bigint"), fn, (
+                pir.InputRef(parse_type(t), col),)))(pb)
+            np.testing.assert_array_equal(got.numpy()[:n],
+                                          np.asarray(want)[:n],
+                                          err_msg=f"{fn}({col})")
