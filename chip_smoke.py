@@ -45,6 +45,23 @@
    within 5 % of the exact count); launches, warm median of 3 and device
    time of each; each kernel's largest input of the phase held to its
    contract; the same at SF 0.01 on the card against the CPU.
+   Then index joins, ARRAY/MAP values, lambdas, the built aggregates and
+   geometry (`phase_structural`) on the same SF 1 catalog plus three
+   memory catalogs: Q6's lineitem rows joined through an index on orders
+   (inner, and LEFT to the orders of 1994), array_agg per customer stored
+   by CTAS and read back through the array functions and lambdas, its
+   UNNEST WITH ORDINALITY, map_agg per order with the map functions and
+   an UNNEST of the maps, map_agg of the return flags per order stored by
+   CTAS (the stored arrays and maps compared element by element with the
+   generated tables), approx_set/tdigest_agg/numeric_histogram per
+   (returnflag, linestatus) and merge of per-month sets stored by CTAS,
+   and a spatial join of 1,000,000 points and 64 polygons with distance
+   sums; under auto and hash, each against a numpy/pandas oracle
+   (approx_set within 5 %, the t-digest median at a rank within 0.02 of
+   0.5, the histogram by its invariants); under hash the index joins must launch join_insert
+   and join_probe; launches, warm median of 3 and device time of each;
+   each kernel's largest input of the phase held to its contract; the
+   same at SF 0.01 on the card against the CPU.
    Then TPC-DS (`phase_tpcds`): the 44 queries of
    presto_tpu_torch/catalog/tpcds_queries.py at SF 1 under auto and hash
    (engines agree; nine numpy/pandas oracles; every query returns rows;
@@ -76,9 +93,11 @@
 Prints a `tpch22` JSON line (each query and engine: rows, warm median,
 first run, lineitem rows/s, launches, device time), a `surface` JSON line
 (each statement and engine: rows, warm median, launches, device time and
-busy share), a `tpcds` JSON line
+busy share), a `structural` JSON line (the same for the structural
+phase), a `tpcds` JSON line
 (the same with store_sales rows/s, and INTERSECT ALL's), a `kernels` JSON
-line (with each kernel's launches on the TPC-DS path under hash)
+line (with each kernel's launches on the TPC-DS path and in the
+structural phase's first runs under hash)
 (`ms` is the cold kernel-alone time where one was taken; `large` holds the
 large shapes, `ms` cold and `ms_warm`), the run's duration, then as its
 last line
@@ -1605,6 +1624,549 @@ def phase_surface(torch, cat, errs):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b'': index joins, ARRAY/MAP values, lambdas, the built aggregates
+# and geometry
+
+Q6_WHERE = ("l_shipdate >= date '1994-01-01' "
+            "and l_shipdate < date '1995-01-01' "
+            "and l_discount between 0.05 and 0.07 and l_quantity < 24")
+LINE_MAPS = ("(select l_orderkey, map_agg(l_linenumber, l_quantity) m "
+             "from tpch.lineitem group by l_orderkey) t")
+GEO_POINTS = 1_000_000  # points of the spatial join (10,000 at SF 0.01)
+GEO_ZONES = 64
+GEO_SEED = 20261017
+GEO_RTOL = 1e-9  # float sums over a million rows, in another order
+SKETCH_RANK = 0.02  # the t-digest median's rank, off 0.5 by at most this
+# name -> the statements one run of it executes, in order; each query is
+# held to its oracle, and the ARRAY and MAP columns that cust_arrays and
+# line_maps store by CTAS element by element (`check_stored`). Catalogs:
+# tpch (the TPC-H tables), idx (orders, and orders of 1994, indexed on
+# o_orderkey), mem (the CTAS targets), geo (points and zones).
+STRUCTURAL = {
+    "ix_inner": [
+        "select o_orderpriority, count(*) n, "
+        "sum(l_extendedprice * l_discount) revenue "
+        "from tpch.lineitem join idx.orders on l_orderkey = o_orderkey "
+        f"where {Q6_WHERE} group by o_orderpriority order by o_orderpriority"],
+    "ix_left": [
+        "select count(*) n, count(o_totalprice) nt, sum(o_totalprice) st "
+        "from tpch.lineitem left join idx.orders_1994 "
+        f"on l_orderkey = o_orderkey where {Q6_WHERE}"],
+    "cust_arrays": [
+        "drop table if exists mem.cust_arrays",
+        "create table mem.cust_arrays as select o_custkey, "
+        "array_agg(o_orderkey) ks, array_agg(o_totalprice) ps "
+        "from tpch.orders group by o_custkey",
+        "select count(*) n, sum(cardinality(ks)) nk, sum(array_max(ps)) top, "
+        "count_if(contains(ks, 7)) has7, sum(array_sort(ks)[1]) firsts, "
+        "sum(cardinality(slice(ks, 2, 3))) sliced, "
+        "sum(cardinality(array_distinct(transform(ks, k -> k % 4)))) mods, "
+        "sum(cardinality(filter(ks, k -> k % 2 = 0))) evens, "
+        "sum(reduce(ks, 0, (s, k) -> s + k)) ksum, "
+        "sum(array_max(zip_with(ks, ps, (k, p) -> k))) lastk, "
+        "sum(ks[1]) k1, sum(ps[1]) p1, sum(element_at(ps, -1)) plast "
+        "from mem.cust_arrays"],
+    "unnest_back": [
+        "select count(*) n, sum(k) sk, sum(o) so, max(o) mo "
+        "from mem.cust_arrays cross join unnest(ks) with ordinality "
+        "as u(k, o)"],
+    "line_maps": [
+        "select count(*) n, sum(cardinality(m)) nm, sum(element_at(m, 1)) q1, "
+        "count(element_at(m, 7)) n7, sum(cardinality(map_keys(m))) nk, "
+        "sum(cardinality(map_filter(m, (k, v) -> v > 25))) big, "
+        "sum(element_at(transform_values(m, (k, v) -> k * 10), 2)) t2 "
+        f"from {LINE_MAPS}",
+        "select count(*) n, sum(k) sk, sum(v) sv "
+        f"from {LINE_MAPS} cross join unnest(m) as u(k, v)",
+        "drop table if exists mem.flag_maps",
+        "create table mem.flag_maps as select l_orderkey, "
+        "map_agg(l_returnflag, l_quantity) m from tpch.lineitem "
+        "group by l_orderkey",
+        "select count(*) n, sum(cardinality(m)) nm, "
+        "sum(element_at(m, 'A')) qa, sum(element_at(m, 'N')) qn, "
+        "sum(element_at(m, 'R')) qr, sum(map_values(m)[1]) v1, "
+        "count_if(map_keys(m)[1] = 'N') k1n from mem.flag_maps"],
+    "sketches": [
+        "select l_returnflag, l_linestatus, count(*) n, "
+        "cardinality(approx_set(l_partkey)) c, "
+        "value_at_quantile(tdigest_agg(l_extendedprice), 0.5) med, "
+        "numeric_histogram(20, l_extendedprice) h from tpch.lineitem "
+        "group by l_returnflag, l_linestatus "
+        "order by l_returnflag, l_linestatus"],
+    "sketch_merge": [
+        "drop table if exists mem.month_sets",
+        "create table mem.month_sets as select "
+        "year(l_shipdate) * 100 + month(l_shipdate) ym, "
+        "approx_set(l_partkey) s from tpch.lineitem group by 1",
+        "select count(*) months, cardinality(merge(s)) c "
+        "from mem.month_sets"],
+    "geo_join": [
+        "select z.zone, count(*) n from geo.pts p, geo.zones z "
+        "where st_contains(st_geometryfromtext(z.wkt), st_point(p.x, p.y)) "
+        "group by z.zone order by z.zone"],
+    "geo_metrics": [
+        "select count(*) n, "
+        "sum(st_distance(st_point(x, y), st_point(50, 50))) d, "
+        "sum(great_circle_distance(y - 50, x - 50, 0, 0)) gc, "
+        "sum(st_distance(st_geometryfromtext("
+        "'POLYGON((40 40, 60 40, 60 60, 40 60, 40 40))'), st_point(x, y))) dp "
+        "from geo.pts"],
+}
+# the statements whose index joins must launch join_insert and join_probe
+# under hash
+INDEX_STATEMENTS = ("ix_inner", "ix_left")
+# unit -> the table it stores by CTAS and `check_stored` reads back
+STORED = {"cust_arrays": "cust_arrays", "line_maps": "flag_maps"}
+
+
+def geo_tables(n_points: int):
+    """The spatial join's tables from GEO_SEED: points uniform in
+    [0, 100)^2, and GEO_ZONES squares of side 5-20 inside [0, 100)^2 with
+    two-decimal corners, every fourth with a centred square hole of half
+    its side. Returns (points frame, zones frame, zone rings)."""
+    import numpy as np
+    import pandas as pd
+
+    rng = np.random.default_rng(GEO_SEED)
+    pts = pd.DataFrame({"id": np.arange(n_points),
+                        "x": rng.uniform(0, 100, n_points),
+                        "y": rng.uniform(0, 100, n_points)})
+    side = np.round(rng.uniform(5, 20, GEO_ZONES), 2)
+    x0 = np.round(rng.uniform(0, 100 - side), 2)
+    y0 = np.round(rng.uniform(0, 100 - side), 2)
+
+    def square(x, y, s):
+        return [(x, y), (x + s, y), (x + s, y + s), (x, y + s), (x, y)]
+
+    def text(ring):
+        return "(" + ", ".join(f"{float(a)!r} {float(b)!r}"
+                               for a, b in ring) + ")"
+
+    rings, wkts = [], []
+    for i in range(GEO_ZONES):
+        rs = [square(x0[i], y0[i], side[i])]
+        if i % 4 == 0:
+            h = side[i] / 2
+            rs.append(square(x0[i] + h / 2, y0[i] + h / 2, h))
+        rings.append(rs)
+        wkts.append("POLYGON(" + ", ".join(text(r) for r in rs) + ")")
+    zones = pd.DataFrame({"zone": np.arange(GEO_ZONES), "wkt": wkts})
+    return pts, zones, rings
+
+
+def add_structural_catalogs(cat, n_points: int):
+    """`cat` (a TPC-H catalog) with the catalogs STRUCTURAL reads: idx
+    (orders, and orders_1994 made by CTAS, both indexed on o_orderkey),
+    mem (empty) and geo (geo_tables). Returns (cat, (points, rings))."""
+    from presto_tpu_torch import convert
+    from presto_tpu_torch.catalog.memory import MemoryConnector
+    from presto_tpu_torch.exec import LocalRunner
+
+    conn = cat.connectors["tpch"]
+    conn.get_table("orders")
+    idx = convert.connector_from_tables({"orders": conn.tables["orders"]},
+                                        name="idx")
+    cat.register("idx", idx)
+    cat.register("mem", MemoryConnector("mem"))
+    LocalRunner(cat, device="cpu").run(
+        "create table idx.orders_1994 as select * from tpch.orders "
+        "where o_orderdate >= date '1994-01-01' "
+        "and o_orderdate < date '1995-01-01'")
+    for t in ("orders", "orders_1994"):
+        idx.tables[t].index_keys = [["o_orderkey"]]
+    pts, zones, rings = geo_tables(n_points)
+    geo = MemoryConnector("geo")
+    geo.add_table("pts", pts)
+    geo.add_table("zones", zones)
+    cat.register("geo", geo)
+    return cat, (pts, rings)
+
+
+def structural_oracles(conn, geo):
+    """Each STRUCTURAL statement's expected result from the generated
+    tables with numpy and pandas (name -> [frame or None a statement]);
+    sketches and sketch_merge give exact distinct counts and each group's
+    sorted values, which approx_set and the t-digest median are held to
+    (`check_structural`)."""
+    import numpy as np
+    import pandas as pd
+    from decimal import Decimal
+
+    def table(name):
+        conn.get_table(name)
+        return conn.tables[name]
+
+    def dec(v, scale):
+        return Decimal(int(v)).scaleb(-scale).quantize(
+            Decimal(1).scaleb(-scale))
+
+    li, od = table("lineitem"), table("orders")
+    la, oa = li.arrays, od.arrays
+    out = {}
+    m = ((la["l_shipdate"] >= _days(1994, 1, 1))
+         & (la["l_shipdate"] < _days(1995, 1, 1))
+         & (la["l_discount"] >= 5) & (la["l_discount"] <= 7)
+         & (la["l_quantity"] < 24))
+    order = np.argsort(oa["o_orderkey"])
+    pos = order[np.searchsorted(oa["o_orderkey"][order],
+                                la["l_orderkey"][m])]
+    prio = od.dicts["o_orderpriority"].values[oa["o_orderpriority"][pos]]
+    rev = la["l_extendedprice"][m] * la["l_discount"][m]
+    f = pd.DataFrame({"p": prio, "r": rev}).groupby("p", sort=True)["r"]
+    out["ix_inner"] = [pd.DataFrame({
+        "o_orderpriority": f.size().index.to_list(),
+        "n": f.size().to_list(), "revenue": [dec(v, 4) for v in f.sum()]})]
+    d94 = ((oa["o_orderdate"][pos] >= _days(1994, 1, 1))
+           & (oa["o_orderdate"][pos] < _days(1995, 1, 1)))
+    out["ix_left"] = [pd.DataFrame({
+        "n": [int(m.sum())], "nt": [int(d94.sum())],
+        "st": [dec(oa["o_totalprice"][pos][d94].sum(), 2)]})]
+    o = pd.DataFrame({"c": oa["o_custkey"], "k": oa["o_orderkey"],
+                      "p": oa["o_totalprice"]})
+    g = o.groupby("c")
+    sizes = g.size()
+    out["cust_arrays"] = [None, None, pd.DataFrame({
+        "n": [len(sizes)], "nk": [int(sizes.sum())],
+        "top": [dec(g["p"].max().sum(), 2)],
+        "has7": [int((o["k"] == 7).sum())],
+        "firsts": [int(g["k"].min().sum())],
+        "sliced": [int(np.minimum(np.maximum(sizes - 1, 0), 3).sum())],
+        "mods": [int((o["k"] % 4).groupby(o["c"]).nunique().sum())],
+        "evens": [int((o["k"] % 2 == 0).sum())],
+        "ksum": [int(o["k"].sum())], "lastk": [int(g["k"].max().sum())],
+        "k1": [int(g["k"].first().sum())],
+        "p1": [dec(g["p"].first().sum(), 2)],
+        "plast": [dec(g["p"].last().sum(), 2)]})]
+    out["unnest_back"] = [pd.DataFrame({
+        "n": [int(sizes.sum())], "sk": [int(o["k"].sum())],
+        "so": [int((sizes * (sizes + 1) // 2).sum())],
+        "mo": [int(sizes.max())]})]
+    lm = pd.DataFrame({"o": la["l_orderkey"], "k": la["l_linenumber"],
+                       "v": la["l_quantity"]})
+    first = lm.drop_duplicates(["o", "k"])
+    per = first.groupby("o")
+    fm = first_flags(li)
+    head = fm.groupby("o").head(1)  # each map's first entry
+    qf = fm.groupby("f")["v"].sum()
+    out["line_maps"] = [pd.DataFrame({
+        "n": [per.ngroups], "nm": [len(first)],
+        "q1": [int(first["v"][first["k"] == 1].sum())],
+        "n7": [int((first["k"] == 7).sum())], "nk": [len(first)],
+        "big": [int((first["v"] > 25).sum())],
+        "t2": [int(20 * (first["k"] == 2).sum())]}),
+        pd.DataFrame({"n": [len(first)], "sk": [int(first["k"].sum())],
+                      "sv": [int(first["v"].sum())]}),
+        None, None,
+        pd.DataFrame({"n": [len(head)], "nm": [len(fm)],
+                      **{f"q{f.lower()}": [int(qf.get(f, 0))]
+                         for f in "ANR"},
+                      "v1": [int(head["v"].sum())],
+                      "k1n": [int((head["f"] == "N").sum())]})]
+    flag = li.dicts["l_returnflag"].values[la["l_returnflag"]]
+    stat = li.dicts["l_linestatus"].values[la["l_linestatus"]]
+    ep = la["l_extendedprice"] * (1.0 / 100)
+    sk = pd.DataFrame({"f": flag, "s": stat, "p": la["l_partkey"], "e": ep})
+    rows = []
+    for (fv, sv), grp in sk.groupby(["f", "s"], sort=True):
+        rows.append({"l_returnflag": fv, "l_linestatus": sv,
+                     "n": len(grp), "c": grp["p"].nunique(),
+                     "med": np.sort(grp["e"].to_numpy()),
+                     "h": (len(grp), float(grp["e"].sum()),
+                           float(grp["e"].min()), float(grp["e"].max()))})
+    out["sketches"] = [pd.DataFrame(rows)]
+    ym = np.unique(np.array([_year_month(int(d)) for d in
+                             np.unique(la["l_shipdate"])]))
+    out["sketch_merge"] = [None, None, pd.DataFrame({
+        "months": [len(ym)], "c": [len(np.unique(la["l_partkey"]))]})]
+    pts, rings = geo
+    x, y = pts["x"].to_numpy(), pts["y"].to_numpy()
+    counts = []
+    for rs in rings:
+        inside = np.zeros(len(x), bool)
+        for ring in rs:  # even-odd over every ring's edges
+            for (x1, y1), (x2, y2) in zip(ring[:-1], ring[1:]):
+                if y1 == y2:
+                    continue
+                straddle = (y1 > y) != (y2 > y)
+                xc = x1 + (y - y1) / (y2 - y1) * (x2 - x1)
+                inside ^= straddle & (x < xc)
+        counts.append(int(inside.sum()))
+    zone = np.arange(GEO_ZONES)
+    keep = np.array(counts) > 0
+    out["geo_join"] = [pd.DataFrame({"zone": zone[keep],
+                                     "n": np.array(counts)[keep]})]
+    lat1, lon1 = np.radians(y - 50), np.radians(x - 50)
+    a = (np.sin(-lat1 / 2) ** 2
+         + np.cos(lat1) * np.sin(-lon1 / 2) ** 2)
+    gc = 2 * 6371.01 * np.arcsin(np.sqrt(np.clip(a, 0, 1)))
+    dx = np.maximum(np.maximum(40 - x, 0), x - 60)
+    dy = np.maximum(np.maximum(40 - y, 0), y - 60)
+    out["geo_metrics"] = [pd.DataFrame({
+        "n": [len(x)], "d": [float(np.hypot(x - 50, y - 50).sum())],
+        "gc": [float(gc.sum())], "dp": [float(np.hypot(dx, dy).sum())]})]
+    return out
+
+
+def first_flags(li):
+    """map_agg(l_returnflag, l_quantity) per order as rows of lineitem `li`:
+    each order's first row of each return flag, in table order (map_agg
+    keeps a key's first value), as (o, v, f) with the flag decoded."""
+    import pandas as pd
+
+    a = li.arrays
+    fm = pd.DataFrame({"o": a["l_orderkey"], "v": a["l_quantity"],
+                       "f": a["l_returnflag"]}).drop_duplicates(["o", "f"])
+    return fm.assign(
+        f=li.dicts["l_returnflag"].values[fm["f"].to_numpy()])
+
+
+def stored_planes(conn):
+    """What cust_arrays and line_maps store by CTAS, element by element,
+    from the generated tables in table order: table -> (group key column,
+    {column: (group keys ascending, sizes, elements in group order and
+    within a group in input order, a map's decoded keys likewise or
+    None)})."""
+    import numpy as np
+
+    def planes(keys, **cols):
+        order = np.argsort(keys, kind="stable")
+        gk, sizes = np.unique(keys, return_counts=True)
+        return {c: (gk, sizes, v[order], None if k is None else k[order])
+                for c, (v, k) in cols.items()}
+
+    oa = conn.tables["orders"].arrays
+    fm = first_flags(conn.tables["lineitem"])
+    return {
+        "cust_arrays": ("o_custkey", planes(
+            oa["o_custkey"], ks=(oa["o_orderkey"], None),
+            ps=(oa["o_totalprice"], None))),
+        "flag_maps": ("l_orderkey", planes(
+            fm["o"].to_numpy(), m=(fm["v"].to_numpy(), fm["f"].to_numpy()))),
+    }
+
+
+def check_stored(mem, table, want, label) -> None:
+    """`table` as the memory connector `mem` holds it against its entry of
+    `stored_planes`, element by element: the group keys, each row's size,
+    every element's value and validity in order, and a map's keys."""
+    import numpy as np
+
+    from presto_tpu_torch.batch import key_dict_name
+
+    key, cols = want
+    t = mem.tables[table]
+    ro = np.argsort(t.arrays[key], kind="stable")
+    for col, (gk, sizes, vals, keys) in cols.items():
+        where = f"{label}: {table}.{col}"
+        got_sizes, evalid, kplane = t.struct[col]
+        require(np.array_equal(t.arrays[key][ro], gk)
+                and np.array_equal(got_sizes[ro], sizes),
+                f"{where}: groups or sizes differ")
+        w = t.arrays[col].shape[1]
+        inside = np.arange(w)[None, :] < got_sizes[ro][:, None]
+        require(np.array_equal(t.arrays[col][ro][inside], vals),
+                f"{where}: elements differ")
+        require(evalid is None or bool(evalid[ro][inside].all()),
+                f"{where}: an element is NULL")
+        if keys is not None:
+            d = np.asarray(t.dicts[key_dict_name(col)].values)
+            require(np.array_equal(d[kplane[ro][inside]], keys),
+                    f"{where}: map keys differ")
+
+
+def _year_month(days: int) -> int:
+    import datetime
+
+    d = datetime.date(1970, 1, 1) + datetime.timedelta(days=days)
+    return d.year * 100 + d.month
+
+
+def check_structural(name, i, got, want, label) -> None:
+    """Statement i of `name` against its oracle: exact, but approx_set
+    within HLL_RTOL of the exact distinct count, the t-digest median at a
+    rank within SKETCH_RANK of 0.5, numeric_histogram by its
+    invariants (20 buckets ascending inside the group's range, counts
+    summing to its rows, centres weighted by counts summing to its
+    values to GEO_RTOL) and the geometry sums to GEO_RTOL."""
+    import numpy as np
+
+    if want is None:
+        return
+    if name in ("geo_metrics",):
+        columns_equal(got, want, label, rtol=GEO_RTOL)
+        return
+    if name not in ("sketches", "sketch_merge"):
+        frames_equal(got, want, label)
+        return
+    require(list(got.columns) == list(want.columns)
+            and len(got) == len(want), f"{label}: shape differs")
+    for c in got.columns:
+        g, w = list(got[c]), list(want[c])
+        if c == "c":
+            err = max(abs(a / b - 1) for a, b in zip(g, w))
+            require(err <= HLL_RTOL, f"{label}: approx_set cardinality "
+                    f"off by {err:.4f} of the exact count")
+        elif c == "med":
+            for med, vals in zip(g, w):
+                lo = np.searchsorted(vals, med, "left") / len(vals)
+                hi = np.searchsorted(vals, med, "right") / len(vals)
+                require(lo <= 0.5 + SKETCH_RANK and hi >= 0.5 - SKETCH_RANK,
+                        f"{label}: t-digest median {med} at rank "
+                        f"[{lo:.4f}, {hi:.4f}]")
+        elif c == "h":
+            for hist, (n, total, lo, hi) in zip(g, w):
+                keys = list(hist)
+                cnts = [hist[k] for k in keys]
+                require(len(keys) == min(20, n) and keys == sorted(keys)
+                        and lo <= keys[0] and keys[-1] <= hi
+                        and sum(cnts) == n
+                        and np.isclose(sum(k * v for k, v in hist.items()),
+                                       total, rtol=GEO_RTOL, atol=0),
+                        f"{label}: numeric_histogram breaks its "
+                        "invariants")
+        else:
+            require(g == w, f"{label}: column {c} differs: {g[:4]} vs "
+                    f"{w[:4]}")
+
+
+def run_unit(torch, runner, sqls, each=None):
+    """The statements of one STRUCTURAL entry, in order: (seconds, frames,
+    what `each(run)` gave for the whole sequence)."""
+    def run():
+        return [runner.run(sql) for sql in sqls]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames, extra = (run(), None) if each is None else each(run)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, frames, extra
+
+
+def phase_structural(torch, cat, errs):
+    """Index joins, ARRAY/MAP values, lambdas, the built aggregates and
+    geometry on the TPC-H SF 1 catalog (plus idx, mem and geo,
+    `add_structural_catalogs`): each STRUCTURAL entry under auto and hash,
+    every statement held to structural_oracles and each STORED table to
+    stored_planes; launches of the first run
+    (counts reset just before, read just after; under hash the index
+    joins must launch join_insert and join_probe), warm median of 3 after
+    it, and the device time of one more run. One more run under hash
+    records each kernel's largest input, held to its contract
+    (`check_recorded`). At SF 0.01 (10,000 points) every statement gives
+    the same frames on the card as on the CPU (float sums to GEO_RTOL).
+    Prints a `structural` JSON line; returns the first runs' launches
+    under hash, summed."""
+    from presto_tpu_torch.catalog.tpch import tpch_catalog
+    from presto_tpu_torch.exec import ExecConfig, LocalRunner
+    from presto_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    _, geo = add_structural_catalogs(cat, GEO_POINTS)
+    t1 = time.perf_counter()
+    want = structural_oracles(cat.connectors["tpch"], geo)
+    stored = stored_planes(cat.connectors["tpch"])
+    t2 = time.perf_counter()
+    idx = cat.connectors["idx"]
+    handles = [idx.get_table(t) for t in ("orders", "orders_1994")]
+    t3 = time.perf_counter()
+    for h in handles:  # build each index's sorted codes
+        idx.get_index(h, ["o_orderkey"]).lookup(
+            {"o_orderkey": [1]}, ["o_orderkey"])
+    print(f"structural: catalogs {t1 - t0:.1f} s, oracles {t2 - t1:.1f} s, "
+          f"index tables' statistics {t3 - t2:.2f} s, index builds "
+          f"{time.perf_counter() - t3:.2f} s (set-up); "
+          f"{int(want['ix_left'][0]['n'][0])} probe rows, "
+          f"{idx.tables['orders_1994'].num_rows} orders of 1994, "
+          f"{int(want['cust_arrays'][2]['n'][0])} customers' arrays of "
+          f"{int(want['unnest_back'][0]['mo'][0])} at most, "
+          f"{int(want['line_maps'][0]['n'][0])} maps, "
+          f"{len(geo[0])} points")
+    runners = {e: LocalRunner(cat, ExecConfig(breaker_engine=e))
+               for e in ENGINES}
+    summary = []
+    hash_launches = {}
+
+    def counted(run):
+        reset_launch_counts()
+        df = run()
+        torch.cuda.synchronize()
+        return df, {k: v for k, v in launch_counts().items() if v}
+
+    def profiled(run):
+        box = {}
+        dev = device_profile(torch, lambda: box.setdefault("df", run()))
+        return box["df"], dev
+
+    def check(name, frames, label):
+        for i, (got, w) in enumerate(zip(frames, want[name])):
+            check_structural(name, i, got, w, f"{label} statement {i}")
+
+    for name, sqls in STRUCTURAL.items():
+        for eng in ENGINES:
+            label = f"structural {name} {eng}"
+            _, frames, launches = run_unit(torch, runners[eng], sqls,
+                                           counted)
+            check(name, frames, label)
+            if name in STORED:
+                t4 = time.perf_counter()
+                check_stored(cat.connectors["mem"], STORED[name],
+                             stored[STORED[name]], label)
+                print(f"{label}: mem.{STORED[name]} equals the generated "
+                      "tables element by element (checked in "
+                      f"{time.perf_counter() - t4:.2f} s)")
+            if eng == "hash":
+                for k, v in launches.items():
+                    hash_launches[k] = hash_launches.get(k, 0) + v
+                if name in INDEX_STATEMENTS:
+                    for k in ("join_insert", "join_probe"):
+                        require(launches.get(k, 0) > 0,
+                                f"{label}: {k} did not launch")
+            passes = [run_unit(torch, runners[eng], sqls) for _ in range(3)]
+            for _, frames, _ in passes:
+                check(name, frames, f"{label} warm")
+            warm = statistics.median(p[0] for p in passes)
+            _, frames, dev = run_unit(torch, runners[eng], sqls, profiled)
+            rows = len(frames[-1])
+            summary.append({"statement": name, "engine": eng, "rows": rows,
+                            "warm_ms": warm * 1e3, "launches": launches,
+                            "busy": dev["device_ms"] / (warm * 1e3), **dev})
+            print(f"structural {name} {eng} SF {SF}: {rows} rows; warm "
+                  f"median of 3 {warm * 1e3:.1f} ms; launches "
+                  f"{json.dumps(launches)}; device time of one run "
+                  f"{dev['device_ms']:.2f} ms ({dev['device_ms'] / warm / 10:.1f}"
+                  f" % of the warm median); largest {json.dumps(dev['top'])}")
+
+    inputs = record_run(torch, lambda: [
+        run_unit(torch, runners["hash"], sqls)
+        for sqls in STRUCTURAL.values()])
+    done = check_recorded(torch, inputs, errs)
+    print(f"structural hash SF {SF}: each kernel's largest input holds its "
+          f"contract: {json.dumps(done)}")
+
+    small, _ = add_structural_catalogs(tpch_catalog(SMALL_SF),
+                                       GEO_POINTS // 100)
+    same = 0
+    for eng in ENGINES:
+        cfg = ExecConfig(breaker_engine=eng)
+        on_gpu, on_cpu = LocalRunner(small, cfg), LocalRunner(
+            small, cfg, device="cpu")
+        for name, sqls in STRUCTURAL.items():
+            _, gpu, _ = run_unit(torch, on_gpu, sqls)
+            _, cpu, _ = run_unit(torch, on_cpu, sqls)
+            for i, (g, c) in enumerate(zip(gpu, cpu)):
+                columns_equal(g, c, f"structural {name} {eng} statement {i} "
+                              f"SF {SMALL_SF} card vs CPU", rtol=GEO_RTOL)
+                same += 1
+    print(f"structural SF {SMALL_SF}: {same} statements equal on the card "
+          f"and the CPU (exact; float sums to {GEO_RTOL})")
+    for c in ("idx", "mem", "geo"):
+        del cat.connectors[c]
+    print(f"structural: phase took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"structural": summary}))
+    return hash_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: TPC-DS
 
 # the output columns of each TPC-DS query's ORDER BY (None: one row, or an
@@ -2539,6 +3101,7 @@ def main() -> int:
     launches, inputs, _, cat = phase_queries(torch)
     timed = phase_tpch22(torch, cat, errs)
     phase_surface(torch, cat, errs)
+    st_launches = phase_structural(torch, cat, errs)
     del cat
     ds_launches, ds_timed = phase_tpcds(torch, errs)
     rows = phase_timing(torch, inputs, timed, ds_timed, errs)
@@ -2548,6 +3111,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "tpcds_launches": ds_launches.get(name, 0),
+            "structural_launches": st_launches.get(name, 0),
             "max_abs_err": errs[name],
             "ms": r["ms_warm"] if r["ms_cold"] is None else r["ms_cold"],
             "cold": r["ms_cold"] is not None, "ms_warm": r["ms_warm"],

@@ -5,9 +5,10 @@ as numpy arrays; a split is read into a Batch on the caller's device and
 kept there (the device-resident split cache), so a repeated scan reads
 device memory instead of crossing PCIe again. CREATE TABLE [AS], INSERT,
 DELETE's rewrite, TRUNCATE and DROP write the host table and drop its
-cached splits. Scalar columns only (varchar, varbinary, ipaddress and
-ipprefix as dictionary codes): ARRAY/MAP columns come with the structural
-planes in a later slice.
+cached splits. String-like columns are dictionary codes; ARRAY and MAP
+columns (Python lists and dicts) are dense padded planes, as the engine's
+Column holds them. A table may declare index key sets (`index_keys`),
+which `get_index` serves from a host hash map for index joins.
 """
 
 from __future__ import annotations
@@ -20,11 +21,19 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from presto_tpu_torch.batch import Batch, Column, round_up_capacity
+from presto_tpu_torch.batch import (
+    Batch,
+    Column,
+    carry_dicts,
+    concat_columns,
+    key_dict_name,
+    round_up_capacity,
+)
 from presto_tpu_torch.connector import (
     ColumnInfo,
     ColumnStats,
     Connector,
+    ConnectorIndex,
     Split,
     TableHandle,
 )
@@ -35,7 +44,9 @@ from presto_tpu_torch.types import (
     DATE,
     DOUBLE,
     INTEGER,
+    ArrayType,
     DecimalType,
+    MapType,
     Type,
     VARBINARY,
     VARCHAR,
@@ -82,10 +93,23 @@ def _infer_type(arr: np.ndarray) -> Type:
             return DOUBLE
         if isinstance(first, (bytes, bytearray)):
             return VARBINARY
-        if isinstance(first, (list, tuple, dict)):
-            raise NotImplementedError(
-                f"column type of {type(first).__name__} values is not "
-                "supported by the port yet")
+        if isinstance(first, (list, tuple)):
+            elems = [e for v in arr if isinstance(v, (list, tuple))
+                     for e in v if e is not None]
+            if not elems:
+                et = BIGINT
+            elif isinstance(elems[0], str):
+                et = VARCHAR
+            else:
+                et = _infer_type(np.asarray(elems))
+            return ArrayType(et)
+        if isinstance(first, dict):
+            ks = [k for v in arr if isinstance(v, dict) for k in v]
+            vs = [x for v in arr if isinstance(v, dict)
+                  for x in v.values() if x is not None]
+            kt = VARCHAR if (ks and isinstance(ks[0], str)) else BIGINT
+            vt = _infer_type(np.asarray(vs)) if vs else BIGINT
+            return MapType(kt, vt)
         return VARCHAR
     if arr.dtype.kind in ("U", "S"):
         return VARCHAR
@@ -122,7 +146,10 @@ def _canonical_ip(v, type_name: str) -> str:
 def _batches_to_host(batches: Sequence[Batch]):
     """Result batches → host columns for the write path: names, types and
     {name: (values, validity|None, hi|None, Dictionary|None)}, live rows
-    only, string columns against one dictionary."""
+    only, string columns against one dictionary. An ARRAY or MAP column
+    comes as ("planes", (values, sizes, evalid | None, keys | None,
+    validity | None), its element dictionary, its key dictionary), its
+    planes cut to the widest live row."""
     from presto_tpu_torch.exec.runtime import _unify_batch_dicts
 
     batches = list(batches)
@@ -133,6 +160,23 @@ def _batches_to_host(batches: Sequence[Batch]):
     names, types = list(batches[0].names), list(batches[0].types)
     out = {}
     for i, name in enumerate(names):
+        if isinstance(types[i], (ArrayType, MapType)):
+            rows = [torch.nonzero(b.live).squeeze(1) for b in batches]
+            c = concat_columns([b.columns[i].gather(r)
+                                for b, r in zip(batches, rows)],
+                               [len(r) for r in rows])
+            w = int(c.sizes.max()) if c.sizes.numel() else 0
+
+            def host(p, cut=True):
+                return None if p is None else (
+                    p[:, :w] if cut else p).cpu().numpy()
+
+            out[name] = ("planes", (
+                host(c.values), host(c.sizes, False), host(c.evalid),
+                host(c.keys), host(c.validity, False)),
+                batches[0].dicts.get(name),
+                batches[0].dicts.get(key_dict_name(name)))
+            continue
         vals, valids, his = [], [], []
         any_valid = any_hi = False
         d = None
@@ -162,20 +206,71 @@ def _batches_to_host(batches: Sequence[Batch]):
     return names, types, out
 
 
+def _encode_structural(col: str, arr: np.ndarray, t: Type, dicts: dict):
+    """Object array of Python lists or dicts → dense padded planes:
+    (values [n, W], sizes, evalid | None, keys [n, W] | None, row validity
+    | None). String elements take a dictionary under `col` (a map's keys
+    under its key dictionary's name), which this adds to `dicts`."""
+    n = len(arr)
+    rvalid = np.array([not _is_null(v) for v in arr], dtype=bool)
+    row_validity = None if rvalid.all() else rvalid
+    if isinstance(t, MapType):
+        cells = [list(v.items()) if isinstance(v, dict) else [] for v in arr]
+    else:
+        cells = [list(v) if isinstance(v, (list, tuple)) else [] for v in arr]
+    sizes = np.array([len(c) for c in cells], np.int32)
+    w = int(sizes.max()) if n else 0
+
+    def encode_plane(get, et, dict_key):
+        vals = np.zeros((n, w), dtype=et.dtype)
+        evalid = np.ones((n, w), dtype=bool)
+        if et.is_string:
+            uniq = sorted({get(e) for c in cells for e in c
+                           if get(e) is not None})
+            d, _ = Dictionary.encode(np.asarray(uniq, dtype=str))
+            dicts[dict_key] = d
+        for i, c in enumerate(cells):
+            for j, e in enumerate(c):
+                v = get(e)
+                if v is None:
+                    evalid[i, j] = False
+                    continue
+                if et.is_string:
+                    vals[i, j] = dicts[dict_key].code_of(str(v))
+                elif isinstance(et, DecimalType):
+                    vals[i, j] = int(round(float(v) * 10 ** et.scale))
+                else:
+                    vals[i, j] = v
+        return vals, (None if evalid.all() else evalid)
+
+    if isinstance(t, MapType):
+        keys2d, _ = encode_plane(lambda kv: kv[0], t.key, key_dict_name(col))
+        vals2d, evalid = encode_plane(lambda kv: kv[1], t.value, col)
+        return vals2d, sizes, evalid, keys2d, row_validity
+    vals2d, evalid = encode_plane(lambda e: e, t.element, col)
+    return vals2d, sizes, evalid, None, row_validity
+
+
 class MemoryTable:
     """Host arrays of one table: `arrays` (values; strings as dictionary
-    codes), `validity` (bool or None), `hi` (long-decimal high limbs) and
-    `dicts`, keyed by column."""
+    codes; an ARRAY or MAP column's [n, W] value plane), `validity` (bool
+    or None), `hi` (long-decimal high limbs), `struct` (a structural
+    column's sizes, element validity and key plane) and `dicts`, keyed by
+    column; `index_keys` are the column sets `get_index` serves."""
 
     def __init__(self, name: str, data: Dict[str, np.ndarray],
                  types: Optional[Dict[str, Type]] = None,
-                 primary_key: Optional[List[str]] = None):
+                 primary_key: Optional[List[str]] = None,
+                 index_keys: Optional[List[List[str]]] = None):
         self.name = name
+        self.index_keys = [list(k) for k in (index_keys or [])]
         self.types: Dict[str, Type] = {}
         self.arrays: Dict[str, np.ndarray] = {}
         self.validity: Dict[str, Optional[np.ndarray]] = {}
         self.dicts: Dict[str, Dictionary] = {}
         self.hi: Dict[str, Optional[np.ndarray]] = {}
+        # col -> (sizes, evalid | None, keys | None)
+        self.struct: Dict[str, tuple] = {}
         self.primary_key = primary_key
         n = None
         for col, raw in data.items():
@@ -193,6 +288,14 @@ class MemoryTable:
                    else np.asarray(raw))
             n = len(arr) if n is None else n
             t = (types or {}).get(col) or _infer_type(arr)
+            if isinstance(t, (ArrayType, MapType)):
+                vals2d, sizes, evalid, keys2d, rvalid = _encode_structural(
+                    col, arr, t, self.dicts)
+                self.types[col] = t
+                self.arrays[col] = vals2d
+                self.validity[col] = rvalid
+                self.struct[col] = (sizes, evalid, keys2d)
+                continue
             valid = None
             if arr.dtype == object:
                 nulls = _null_mask(arr)
@@ -242,7 +345,11 @@ class MemoryTable:
 
     def column_stats(self, col: str) -> ColumnStats:
         """NDV / null-fraction / min-max for the CBO, computed as the JAX
-        package computes them so both packages' planners decide alike."""
+        package computes them so both packages' planners decide alike. An
+        ARRAY or MAP column is never a key or a compared value, so the
+        planner reads only its null fraction, and its element statistics
+        (a distinct count over every element of the plane) are not
+        computed."""
         cache = self.__dict__.setdefault("_stats_cache", {})
         if col in cache:
             return cache[col]
@@ -250,7 +357,9 @@ class MemoryTable:
         valid = self.validity.get(col)
         n = len(arr)
         nf = 0.0 if valid is None else float((~valid).sum()) / max(n, 1)
-        if col in self.dicts:
+        if col in self.struct:
+            cs = ColumnStats(null_fraction=nf)
+        elif col in self.dicts:
             cs = ColumnStats(ndv=float(len(self.dicts[col])), null_fraction=nf)
         elif n == 0:
             cs = ColumnStats(ndv=0.0, null_fraction=nf)
@@ -300,7 +409,7 @@ def batch_bytes(b: Batch) -> int:
     """Device bytes held by a batch's tensors."""
     n = b.live.numel() * b.live.element_size()
     for c in b.columns:
-        for t in (c.values, c.validity, c.hi):
+        for t in c.planes():
             if t is not None:
                 n += t.numel() * t.element_size()
     return n
@@ -327,7 +436,11 @@ class MemoryConnector(Connector):
                 _, nbytes = self._split_cache.pop(k)
                 self._split_cache_used -= nbytes
 
-    def add_table(self, name: str, data, types=None, primary_key=None):
+    def add_table(self, name: str, data, types=None, primary_key=None,
+                  index_keys=None):
+        """Register a table from a DataFrame or {column: array}.
+        `index_keys` lists column sets that get_index serves (an index is
+        never implied by the primary key)."""
         import pandas as pd
 
         if isinstance(data, pd.DataFrame):
@@ -340,7 +453,8 @@ class MemoryConnector(Connector):
                 else:
                     cols[c] = s.to_numpy()
             data = cols
-        self.tables[name] = MemoryTable(name, data, types, primary_key)
+        self.tables[name] = MemoryTable(name, data, types, primary_key,
+                                        index_keys=index_keys)
         self.invalidate_cache(name)
 
     def add_generated(self, name: str, data: Dict[str, object],
@@ -374,6 +488,21 @@ class MemoryConnector(Connector):
             raise KeyError(f"table not found: {name}")
         return self.tables[name].handle(self.name)
 
+    def get_index(self, handle, key_columns):
+        """A keyed lookup over a declared index key set, else None. The
+        index lives with the table version, so its host map is built once
+        (set-up), not once a query."""
+        t = self.tables.get(handle.name)
+        if t is None:
+            return None
+        if not any(set(key_columns) == set(k) for k in t.index_keys):
+            return None
+        cache = t.__dict__.setdefault("_indexes", {})
+        key = tuple(key_columns)
+        if key not in cache:
+            cache[key] = _MemoryIndex(t, list(key_columns))
+        return cache[key]
+
     # -- write path: a statement's rows go to the host table, and the
     # device split cache of that table is dropped ---------------------------
 
@@ -391,7 +520,18 @@ class MemoryConnector(Connector):
         mt = MemoryTable(name, {}, {})
         mt.types = dict(zip(names, types))
         rows = 0
-        for col, (vals, valid, hi, d) in data.items():
+        for col, payload in data.items():
+            if isinstance(payload[0], str) and payload[0] == "planes":
+                (vals, sizes, evalid, keys, valid), ed, kd = payload[1:]
+                mt.arrays[col] = vals
+                mt.validity[col] = valid
+                mt.struct[col] = (sizes, evalid, keys)
+                for key, d in ((col, ed), (key_dict_name(col), kd)):
+                    if d is not None:
+                        mt.dicts[key] = d
+                rows = len(sizes)
+                continue
+            vals, valid, hi, d = payload
             mt.arrays[col] = vals
             mt.validity[col] = valid
             mt.hi[col] = hi
@@ -411,6 +551,11 @@ class MemoryConnector(Connector):
             raise KeyError(f"table not found: {name}")
         mt = self.tables[name]
         names, types, data = _batches_to_host(batches)
+        if (any(isinstance(t, (ArrayType, MapType)) for t in types)
+                or mt.struct):
+            raise NotImplementedError(
+                "INSERT INTO with ARRAY/MAP columns is not supported (CTAS "
+                "is), as in the JAX package")
         target_cols = list(mt.arrays.keys())
         if len(names) != len(target_cols):
             raise ValueError(
@@ -454,6 +599,7 @@ class MemoryConnector(Connector):
             rows = len(vals)
         mt.num_rows += rows
         mt.__dict__.pop("_stats_cache", None)
+        mt.__dict__.pop("_indexes", None)
         self.invalidate_cache(name)
         return rows
 
@@ -524,24 +670,125 @@ class MemoryConnector(Connector):
         n = t.num_rows
         lo = n * split.part // split.total
         hi = n * (split.part + 1) // split.total
-        b = Batch.from_numpy(
-            {c: t.arrays[c][lo:hi] for c in columns},
-            {c: t.types[c] for c in columns}, device,
-            dicts={c: t.dicts[c] for c in columns if c in t.dicts},
-            capacity=capacity or round_up_capacity(max(hi - lo, 1)))
-        cols = list(b.columns)
-        for i, c in enumerate(columns):
-            v, h = t.validity[c], t.hi.get(c)
-            if v is None and h is None:
-                continue
-            vcol = hcol = None
+        return _rows_batch(t, columns, np.arange(lo, hi), device,
+                           capacity or round_up_capacity(max(hi - lo, 1)))
+
+
+def _rows_batch(t: MemoryTable, columns: Sequence[str], rows: np.ndarray,
+                device: torch.device, cap: int) -> Batch:
+    """Rows `rows` (ascending positions) of columns of a table as one batch
+    of capacity `cap` on `device`, with validity, long-decimal limbs,
+    structural planes and dictionaries (a map's key dictionary too)."""
+    k = len(rows)
+    contiguous = k == 0 or rows[-1] - rows[0] + 1 == k
+
+    def take(arr):
+        return (arr[rows[0]:rows[0] + k] if contiguous and k
+                else arr[rows])
+
+    def pad(arr, dtype):
+        buf = np.zeros((cap,) + arr.shape[1:], dtype=dtype)
+        buf[:k] = take(arr)
+        return torch.from_numpy(buf).to(device)
+
+    cols, dicts = [], {}
+    for c in columns:
+        typ = t.types[c]
+        v, h = t.validity.get(c), t.hi.get(c)
+        vcol = None if v is None else pad(v, bool)
+        hcol = None if h is None else pad(h, np.int64)
+        if c in t.struct:
+            sizes, evalid, keys2d = t.struct[c]
+            cols.append(Column(
+                pad(t.arrays[c], typ.dtype), vcol, None,
+                pad(sizes, np.int32),
+                None if evalid is None else pad(evalid, bool),
+                None if keys2d is None else pad(keys2d, keys2d.dtype)))
+        else:
+            cols.append(Column(pad(t.arrays[c], typ.dtype), vcol, hcol))
+        carry_dicts(t.dicts, dicts, c)
+    live = np.zeros(cap, dtype=bool)
+    live[:k] = True
+    return Batch(list(columns), [t.types[c] for c in columns], cols,
+                 torch.from_numpy(live).to(device), dicts)
+
+
+class _MemoryIndex(ConnectorIndex):
+    """Key → row positions on the host, built on first use. Each key
+    column codes its rows by their rank among its sorted distinct
+    (decoded) values; the codes of a key set fold, column by column, into
+    one dense int64 code, and the rows sit sorted by it. A lookup codes the
+    distinct probe keys the same way, by binary search, and takes each
+    one's run of rows. It materializes only the matching rows, as one
+    batch, in table order. A NULL key matches nothing, and so does NaN
+    (no probe equals it)."""
+
+    def __init__(self, table: MemoryTable, key_columns):
+        self.t = table
+        self.keys = key_columns
+        self._built = None
+
+    def _decoded(self, col: str) -> np.ndarray:
+        arr = self.t.arrays[col]
+        d = self.t.dicts.get(col)
+        if d is not None:
+            return np.asarray(d.values, dtype=object)[arr]
+        return arr
+
+    def _ensure_built(self):
+        """Per key column its sorted distinct values and the sorted folded
+        codes after it; the indexed rows' final codes sorted, and those
+        rows in the same order."""
+        if self._built is not None:
+            return
+        cols = [self._decoded(c) for c in self.keys]
+        valid = np.ones(self.t.num_rows, dtype=bool)
+        for c in self.keys:
+            v = self.t.validity.get(c)
             if v is not None:
-                pad = np.zeros(b.capacity, dtype=bool)
-                pad[: hi - lo] = v[lo:hi]
-                vcol = torch.from_numpy(pad).to(device)
-            if h is not None:
-                hpad = np.zeros(b.capacity, dtype=np.int64)
-                hpad[: hi - lo] = h[lo:hi]
-                hcol = torch.from_numpy(hpad).to(device)
-            cols[i] = Column(cols[i].values, vcol, hcol)
-        return Batch(b.names, b.types, cols, b.live, b.dicts)
+                valid &= v
+        rows = np.flatnonzero(valid)
+        code = np.zeros(len(rows), dtype=np.int64)
+        steps = []
+        for vals in cols:
+            uniq, inv = np.unique(vals[rows], return_inverse=True)
+            folded, code = np.unique(code * len(uniq) + inv.reshape(-1),
+                                     return_inverse=True)
+            code = code.reshape(-1)
+            steps.append((uniq, folded))
+        order = np.argsort(code, kind="stable")
+        self._built = (steps, code[order], rows[order])
+
+    def _positions(self, keys) -> np.ndarray:
+        """Ascending positions of the rows whose key is among `keys`."""
+        self._ensure_built()
+        steps, scodes, srows = self._built
+        probe = [np.asarray(keys[c]) for c in self.keys]
+        if not len(srows) or not len(probe[0]):
+            return np.zeros(0, dtype=np.int64)
+        code = np.zeros(len(probe[0]), dtype=np.int64)
+        hit = np.ones(len(probe[0]), dtype=bool)
+        for p, (uniq, folded) in zip(probe, steps):
+            i = np.minimum(np.searchsorted(uniq, p), len(uniq) - 1)
+            hit &= uniq[i] == p
+            f = code * len(uniq) + i
+            j = np.minimum(np.searchsorted(folded, f), len(folded) - 1)
+            hit &= folded[j] == f
+            code = j
+        want = np.unique(code[hit])
+        lo = np.searchsorted(scodes, want, "left")
+        n = np.searchsorted(scodes, want, "right") - lo
+        start = np.repeat(lo - np.cumsum(n) + n, n)
+        return np.sort(srows[start + np.arange(int(n.sum()))])
+
+    def lookup(self, keys, columns, capacity=None,
+               device: torch.device = torch.device("cpu")) -> Batch:
+        """Every row whose key tuple is among `keys` (decoded values, one
+        array a key column), in table order, on `device`."""
+        for c in columns:
+            if c in self.t.struct:
+                raise NotImplementedError(
+                    "index lookup over structural columns")
+        rows = self._positions(keys)
+        cap = capacity or round_up_capacity(max(len(rows), 1))
+        return _rows_batch(self.t, columns, rows, device, cap)

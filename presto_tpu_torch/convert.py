@@ -14,7 +14,7 @@ from typing import Dict, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.batch import Batch, Column, dict_owner
 from presto_tpu_torch.catalog.memory import MemoryConnector, MemoryTable
 from presto_tpu_torch.dictionary import Dictionary
 from presto_tpu_torch.types import Type, parse_type
@@ -68,12 +68,20 @@ def connector_from_tables(tables: Mapping[str, object],
                           name: str = "memory") -> MemoryConnector:
     """A port MemoryConnector over the host arrays of existing tables. Each
     table object carries `arrays`, `validity`, `hi`, `dicts`, `types` and
-    optionally `primary_key`, keyed by column (the layout of a MemoryTable);
-    arrays are shared, not copied."""
+    optionally `primary_key`, `index_keys` and `struct` (an ARRAY or MAP
+    column's sizes, element validity and key plane), keyed by column (the
+    layout of a MemoryTable); arrays are shared, not copied."""
     conn = MemoryConnector(name)
     for tname, t in tables.items():
         mt = MemoryTable(tname, {})
         mt.primary_key = getattr(t, "primary_key", None)
+        mt.index_keys = [list(k) for k in getattr(t, "index_keys", [])]
+        for col, planes in getattr(t, "struct", {}).items():
+            mt.struct[col] = tuple(None if p is None else np.asarray(p)
+                                   for p in planes)
+        for key, d in t.dicts.items():
+            if dict_owner(key) != key:  # a map column's key dictionary
+                mt.dicts[key] = _dictionary(d)
         for col, arr in t.arrays.items():
             mt.types[col] = _type(t.types[col])
             mt.arrays[col] = np.asarray(arr)

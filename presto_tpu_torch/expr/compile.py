@@ -31,9 +31,14 @@ greatest/least, round half away from zero, power), bitwise_*,
 is_nan/is_finite/is_infinite, from_unixtime/to_unixtime, width_bucket,
 the date and time parts and arithmetic (year/quarter/month/day,
 day_of_week, day_of_year, the time-of-day parts, date_add, date_trunc,
-date_diff), and approx_distinct's __hll_reg/__hll_rank. Functions over
-ARRAY/MAP values and any other function raise NotImplementedError naming
-it; a cast to varchar runs on the host (exec/runtime.py HostProject).
+date_diff), approx_distinct's __hll_reg/__hll_rank, every function over
+ARRAY and MAP values (expr/structural.py: constructors, subscripts,
+contains, sorts and set functions, and the lambdas transform, filter,
+reduce, the matches, transform_values, map_filter and zip_with, whose
+body evaluates once over the flattened [cap * W] element plane), and the
+geometry functions (expr/geo.py). Any other function raises
+NotImplementedError naming it; a cast to varchar runs on the host
+(exec/runtime.py HostProject).
 
 Division of a float by a plan-time constant multiplies by its reciprocal,
 as XLA compiles the JAX package's division, so both round alike.
@@ -42,12 +47,21 @@ as XLA compiles the JAX package's division, so both round alike.
 from __future__ import annotations
 
 import re
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from presto_tpu_torch.batch import Batch
+from presto_tpu_torch.batch import (
+    Batch,
+    Column,
+    carry_dicts,
+    key_dict_name,
+    pad_plane_width,
+)
 from presto_tpu_torch.dictionary import Dictionary
+from presto_tpu_torch.expr import structural as _struct
+from presto_tpu_torch.expr.structural import StructVal
 from presto_tpu_torch.expr.host import (
     HLL_M,
     _STR_INT_NULLABLE,
@@ -63,12 +77,20 @@ from presto_tpu_torch.expr.host import (
     parse_string_to,
     regexp_split_pieces,
 )
-from presto_tpu_torch.expr.ir import Call, Constant, InputRef, RowExpression
+from presto_tpu_torch.expr.ir import (
+    Call,
+    Constant,
+    InputRef,
+    LambdaExpr,
+    RowExpression,
+)
 from presto_tpu_torch.ops.hashing import splitmix64
 from presto_tpu_torch.types import (
     BOOLEAN,
     DOUBLE,
+    ArrayType,
     DecimalType,
+    MapType,
     Type,
     is_floating,
     is_integral,
@@ -150,12 +172,15 @@ def unscale(v: torch.Tensor, scale: int) -> torch.Tensor:
 
 class CompileContext:
     """What evaluation needs beyond the IR: the batch (its dictionaries and
-    device), and `out_dict`, the dictionary of the string literals an
-    expression yields as values (CASE ... THEN 'x')."""
+    device), `out_dict`, the dictionary of the string literals an
+    expression yields as values (CASE ... THEN 'x'), and `extra_dicts`,
+    the dictionaries of a lambda's string parameters by symbol."""
 
-    def __init__(self, batch: Batch, out_dict: Dictionary | None = None):
+    def __init__(self, batch: Batch, out_dict: Dictionary | None = None,
+                 extra_dicts: dict | None = None):
         self.batch = batch
         self.out_dict = out_dict
+        self.extra_dicts = extra_dicts or {}
 
     @property
     def device(self) -> torch.device:
@@ -167,13 +192,17 @@ class CompileContext:
 
     def dict_for(self, e: RowExpression) -> Dictionary | None:
         if isinstance(e, InputRef):
+            if e.name in self.extra_dicts:
+                return self.extra_dicts[e.name]
             return self.batch.dict_of(e.name)
         if isinstance(e, Call):
             if e.fn in _STR_TO_STR:
                 return self.transformed(e)[0]
-            if e.fn in ("subscript", "element_at") and _is_split(e.args[0]):
-                # the pieces' dictionary, not the split operand's
-                return self.split_tables(e.args[0])[0]
+            if (e.fn in ("subscript", "element_at") and e.args
+                    and isinstance(e.args[0].type, (ArrayType, MapType))):
+                # codes of the structural operand's element plane (the
+                # pieces' dictionary of a split, not its operand's)
+                return _elem_dict(e.args[0], self)
             for a in e.args:
                 d = self.dict_for(a)
                 if d is not None:
@@ -267,7 +296,8 @@ def string_output_dictionary(e: RowExpression) -> Dictionary | None:
                 and x.value is not None):
             consts.append(str(x.value))
         if isinstance(x, Call):
-            in_value_pos = x.fn in ("if", "coalesce", "nullif") or (
+            in_value_pos = x.fn in ("if", "coalesce", "nullif", "array_ctor",
+                                    "repeat", "map") or (
                 value_pos and x.fn == "cast")
             for a in x.args:
                 walk(a, in_value_pos and a.type.is_string)
@@ -289,6 +319,13 @@ def compile_expr(e: RowExpression):
     def fn(batch: Batch):
         return _eval(e, CompileContext(batch, out_dict))
 
+    if isinstance(e.type, (ArrayType, MapType)) and not isinstance(
+            e, InputRef):
+        def sdicts(batch: Batch):
+            """(element dictionary, key dictionary) of the value."""
+            return struct_dicts(e, CompileContext(batch, out_dict))
+
+        fn.sdicts = sdicts
     if e.type.is_string and not isinstance(e, InputRef):
         def dyn_dict(batch: Batch):
             d = CompileContext(batch, out_dict).dict_for(e)
@@ -319,6 +356,8 @@ def compile_predicate(e: RowExpression):
 def _eval(e: RowExpression, ctx: CompileContext):
     if isinstance(e, InputRef):
         c = ctx.batch.column(e.name)
+        if c.sizes is not None:
+            return StructVal(c.values, c.sizes, c.evalid, c.keys), c.validity
         if c.hi is not None:
             # long decimal: expressions compute over the combined float64
             # unscaled value — exact below 2^53
@@ -384,20 +423,28 @@ _STRUCT_ONLY_FNS = {
 }
 _STRUCT_POLY_FNS = {"cardinality", "contains", "concat", "element_at",
                     "subscript"}
+_GEO_FNS = {
+    "st_geometryfromtext", "st_point", "st_x", "st_y", "st_distance",
+    "st_contains", "st_intersects", "st_area", "st_perimeter", "st_length",
+    "st_npoints", "st_xmin", "st_xmax", "st_ymin", "st_ymax", "st_centroid",
+    "great_circle_distance",
+}
 
 
 def _eval_call(e: Call, ctx: CompileContext):
     fn = e.fn
 
-    # ---- split pieces: the only structural values the port evaluates ---
+    if fn in _GEO_FNS:
+        return _eval_geo(e, ctx)
+
+    # ---- structural (ARRAY / MAP) ----------------------------------------
     if fn in ("subscript", "element_at", "cardinality") and _is_split(
             e.args[0]):
+        # a split's pieces straight from the split tables
         return _eval_split_access(e, ctx)
     if fn in _STRUCT_ONLY_FNS or (fn in _STRUCT_POLY_FNS and e.args
                                   and is_structural(e.args[0].type)):
-        raise NotImplementedError(
-            f"function {fn} over arrays and maps is not supported by "
-            "presto_tpu_torch yet")
+        return _eval_structural(e, ctx)
 
     # ---- comparisons (incl. dictionary-code string compares) -------------
     if fn in _CMP:
@@ -1165,3 +1212,701 @@ def _eval_cast(e: Call, ctx):
     if tt is BOOLEAN:
         return v.to(torch.bool), valid
     return v.to(tdt), valid
+
+
+# ---------------------------------------------------------------------------
+# structural (ARRAY / MAP) evaluation
+
+
+def _merge_dicts(ds) -> Dictionary | None:
+    d = None
+    for x in ds:
+        if x is not None:
+            d = x if d is None or d is x else Dictionary.merge(d, x)
+    return d
+
+
+def _array_ctor_dict(e: Call, ctx: CompileContext) -> Dictionary | None:
+    """Element dictionary of ARRAY[...] over strings: the union of each
+    operand column's dictionary and the literal elements (a literal absent
+    from a column's dictionary still gets a code; operand codes remap into
+    the union when evaluated)."""
+    d = _merge_dicts(ctx.dict_for(a) for a in e.args
+                     if not isinstance(a, Constant))
+    lits = sorted({str(a.value) for a in e.args
+                   if isinstance(a, Constant) and a.value is not None})
+    if lits:
+        # object dtype keeps the trailing NULs of canonical byte entries
+        ld, _ = Dictionary.encode(np.asarray(lits, dtype=object))
+        d = ld if d is None else Dictionary.merge(d, ld)
+    return d
+
+
+def _setop_elem_dict(e: Call, ctx: CompileContext) -> Dictionary | None:
+    """The operands' element dictionaries merged (codes of a set function
+    must share one space to compare)."""
+    t0 = e.args[0].type
+    elem = t0.element if isinstance(t0, ArrayType) else t0.value
+    if not elem.is_string:
+        return None
+    return _merge_dicts(_elem_dict(a, ctx) for a in e.args)
+
+
+def _setop_key_dict(e: Call, ctx: CompileContext) -> Dictionary | None:
+    return _merge_dicts(_key_dict(a, ctx) for a in e.args)
+
+
+def _elem_dict(e: RowExpression, ctx: CompileContext) -> Dictionary | None:
+    """Dictionary of a structural expression's (string) element plane."""
+    if isinstance(e, InputRef):
+        return ctx.batch.dict_of(e.name)
+    if isinstance(e, Call):
+        if e.fn == "array_ctor" and e.type.element.is_string:
+            return _array_ctor_dict(e, ctx)
+        if _is_split(e):
+            operand, cargs = _xform_parts(e)
+            d = ctx.dict_for(operand)
+            return None if d is None else _split_tables(d, e.fn, cargs)[0]
+        if e.fn == "array_remove":
+            return _elem_dict(e.args[0], ctx)
+        if e.fn == "map":
+            return _elem_dict(e.args[1], ctx)
+        if e.fn == "map_keys":
+            return _key_dict(e.args[0], ctx)
+        if e.fn in ("array_union", "array_intersect", "array_except",
+                    "map_concat"):
+            return _setop_elem_dict(e, ctx)
+        if e.fn in ("transform", "transform_values"):
+            # the body's dictionary with the parameters bound to the
+            # input's element (and key) dictionaries
+            le = e.args[1]
+            bound = dict(ctx.extra_dicts)
+            if e.fn == "transform":
+                bound[le.params[0][0]] = _elem_dict(e.args[0], ctx)
+            else:
+                bound[le.params[0][0]] = _key_dict(e.args[0], ctx)
+                bound[le.params[1][0]] = _elem_dict(e.args[0], ctx)
+            return CompileContext(ctx.batch, ctx.out_dict,
+                                  bound).dict_for(le.body)
+        for a in e.args:
+            if isinstance(a.type, (ArrayType, MapType)):
+                d = _elem_dict(a, ctx)
+            elif a.type.is_string:
+                d = ctx.dict_for(a)
+            else:
+                continue
+            if d is not None:
+                return d
+    return ctx.out_dict
+
+
+def _key_dict(e: RowExpression, ctx: CompileContext) -> Dictionary | None:
+    """Dictionary of a map expression's (string) key plane."""
+    if isinstance(e, InputRef):
+        return ctx.batch.dict_of(key_dict_name(e.name))
+    if isinstance(e, Call):
+        if e.fn == "map":
+            return _elem_dict(e.args[0], ctx)
+        if e.fn in ("transform_values", "map_filter"):
+            return _key_dict(e.args[0], ctx)
+        if e.fn == "map_concat":
+            return _setop_key_dict(e, ctx)
+        for a in e.args:
+            if isinstance(a.type, MapType):
+                d = _key_dict(a, ctx)
+                if d is not None:
+                    return d
+    return None
+
+
+def struct_dicts(e: RowExpression, ctx: CompileContext):
+    """(element dictionary, key dictionary) a projected structural column
+    carries."""
+    t = e.type
+    ed = kd = None
+    if isinstance(t, ArrayType) and t.element.is_string:
+        ed = _elem_dict(e, ctx)
+    if isinstance(t, MapType):
+        if t.value.is_string:
+            ed = _elem_dict(e, ctx)
+        if t.key.is_string:
+            kd = _key_dict(e, ctx)
+    return ed, kd
+
+
+def _eval_struct_const(a: Constant, ctx: CompileContext,
+                       d: Dictionary | None):
+    """A scalar constant inside a structural expression; a string resolves
+    against the element or key dictionary `d`."""
+    if a.value is None:
+        cap = ctx.batch.capacity
+        return (torch.zeros(cap, dtype=torch_dtype(a.type.dtype),
+                            device=ctx.device),
+                torch.zeros(cap, dtype=torch.bool, device=ctx.device))
+    if a.type.is_string:
+        d = d if d is not None else ctx.out_dict
+        if d is None:
+            raise ValueError("string constant in structural expression "
+                             "without a dictionary context")
+        return torch.tensor(d.code_of(str(a.value)), dtype=torch.int32,
+                            device=ctx.device), None
+    return _eval_constant(a, ctx, None)
+
+
+def _remapped(ctx: CompileContext, src: Dictionary, dst: Dictionary,
+              codes: torch.Tensor) -> torch.Tensor:
+    """Codes of `src` as codes of `dst` (-1 where absent)."""
+    return ctx.table(src.map_to(dst))[codes.to(torch.int64) + 1].to(
+        codes.dtype)
+
+
+def _eval_structural(e: Call, ctx: CompileContext):
+    fn = e.fn
+    cap = ctx.batch.capacity
+
+    def scalar_arg(a: RowExpression, d: Dictionary | None = None):
+        if isinstance(a, Constant):
+            v, valid = _eval_struct_const(a, ctx, d)
+        else:
+            v, valid = _eval(a, ctx)
+        return torch.broadcast_to(v, (cap,)), valid
+
+    if fn == "array_ctor":
+        et = e.type.element
+        dt = torch_dtype(et.dtype)
+        if not et.is_string:
+            return _struct.array_ctor([scalar_arg(a) for a in e.args], cap,
+                                      dt, ctx.device), None
+        # one element dictionary: operand codes remap into the union of
+        # the column dictionaries and the literals
+        d = _array_ctor_dict(e, ctx)
+        parts = []
+        for a in e.args:
+            if isinstance(a, Constant):
+                v, valid = _eval_struct_const(a, ctx, d)
+            else:
+                v, valid = _eval(a, ctx)
+                ad = ctx.dict_for(a)
+                if ad is not None and ad is not d:
+                    v = _remapped(ctx, ad, d, v)
+            parts.append((torch.broadcast_to(v, (cap,)), valid))
+        return _struct.array_ctor(parts, cap, dt, ctx.device), None
+
+    if _is_split(e):
+        # the pieces and counts are host tables over the operand's
+        # dictionary; rows take theirs by one gather
+        _, plane, sizes, operand = ctx.split_tables(e)
+        codes, valid = _eval(operand, ctx)
+        idx = codes.to(torch.int64) + 1
+        return StructVal(ctx.table(plane)[idx], ctx.table(sizes)[idx],
+                         None), valid
+
+    if fn == "array_remove":
+        sv0, rvalid0 = _eval(e.args[0], ctx)
+        d = (_elem_dict(e.args[0], ctx)
+             if e.args[0].type.element.is_string else None)
+        xb, xvalid = scalar_arg(e.args[1], d)
+        # only present non-NULL elements can equal; NULL elements stay.
+        # Mixed numeric widths compare in float64
+        if xb.dtype != sv0.values.dtype:
+            equal = (sv0.values.to(torch.float64)
+                     == xb.to(torch.float64)[:, None])
+        else:
+            equal = sv0.values == xb[:, None]
+        keep = sv0.present() & ~(equal & sv0.element_valid())
+        # a NULL element argument gives a NULL result
+        return (_struct.filter_elements(sv0, keep),
+                _and_valid(rvalid0, xvalid))
+
+    if fn == "sequence":
+        lo = int(e.args[0].value)
+        hi = int(e.args[1].value)
+        step = (int(e.args[2].value) if len(e.args) > 2
+                else (1 if hi >= lo else -1))
+        return _struct.sequence(lo, hi, step, cap, ctx.device), None
+
+    if fn == "repeat":
+        n = int(e.args[1].value)
+        et = e.type.element
+        d = _elem_dict(e, ctx) if et.is_string else None
+        v, valid = scalar_arg(e.args[0], d)
+        return _struct.repeat_val(v, valid, n, cap,
+                                  torch_dtype(et.dtype)), None
+
+    if fn == "map":
+        ksv, kvalid = _eval(e.args[0], ctx)
+        vsv, vvalid = _eval(e.args[1], ctx)
+        return _struct.map_from_arrays(ksv, vsv), _and_valid(kvalid, vvalid)
+
+    if fn == "reduce":
+        return _eval_reduce(e, ctx)
+    if fn == "zip_with":
+        return _eval_zip_with(e, ctx)
+
+    # the remaining forms evaluate their structural operand first
+    sv, rvalid = _eval(e.args[0], ctx)
+    t0 = e.args[0].type
+
+    if fn == "cardinality":
+        return _struct.cardinality(sv, rvalid)
+    if fn in ("subscript", "element_at"):
+        if isinstance(t0, MapType):
+            d = _key_dict(e.args[0], ctx) if t0.key.is_string else None
+            kv, kvalid = scalar_arg(e.args[1], d)
+            return _struct.map_element_at(sv, kv, kvalid, rvalid)
+        iv, ivalid = scalar_arg(e.args[1])
+        return _struct.subscript(sv, iv.to(torch.int64), ivalid, rvalid)
+    if fn in ("contains", "array_position"):
+        d = _elem_dict(e.args[0], ctx) if t0.element.is_string else None
+        xv, xvalid = scalar_arg(e.args[1], d)
+        f = _struct.contains if fn == "contains" else _struct.array_position
+        return f(sv, xv, xvalid, rvalid)
+    if fn in ("array_min", "array_max"):
+        return _struct.array_minmax(sv, rvalid, fn == "array_min")
+    if fn in ("array_sum", "array_average"):
+        return _struct.array_sum(sv, rvalid, torch_dtype(e.type.dtype),
+                                 fn == "array_average")
+    if fn == "array_sort":
+        return _struct.array_sort(sv), rvalid
+    if fn == "array_distinct":
+        return _struct.array_distinct(sv), rvalid
+    if fn == "slice":
+        s0, svalid = scalar_arg(e.args[1])
+        ln, lvalid = scalar_arg(e.args[2])
+        out = _struct.slice_array(sv, s0.to(torch.int64), ln.to(torch.int64))
+        return out, _and_valid(rvalid, _and_valid(svalid, lvalid))
+    if fn == "concat":
+        out, valid = sv, rvalid
+        for a in e.args[1:]:
+            asv, avalid = _eval(a, ctx)
+            out = _struct.concat_arrays(out, asv)
+            valid = _and_valid(valid, avalid)
+        return out, valid
+    if fn == "map_keys":
+        return _struct.map_keys(sv), rvalid
+    if fn == "map_values":
+        return _struct.map_values(sv), rvalid
+    if fn in ("array_union", "array_intersect", "array_except",
+              "arrays_overlap", "map_concat"):
+        target = _setop_elem_dict(e, ctx)
+        ktarget = (_setop_key_dict(e, ctx)
+                   if fn == "map_concat" and t0.key.is_string else None)
+
+        def aligned(arg, s):
+            # each operand's codes in the merged dictionaries
+            if target is not None:
+                d = _elem_dict(arg, ctx)
+                if d is not None and d is not target:
+                    s = s.replace(values=_remapped(ctx, d, target, s.values))
+            if ktarget is not None:
+                d = _key_dict(arg, ctx)
+                if d is not None and d is not ktarget:
+                    s = s.replace(keys=_remapped(ctx, d, ktarget, s.keys))
+            return s
+
+        out, valid = aligned(e.args[0], sv), rvalid
+        setfn = {"array_union": _struct.array_union,
+                 "array_intersect": _struct.array_intersect,
+                 "array_except": _struct.array_except,
+                 "map_concat": _struct.map_concat}
+        for a in e.args[1:]:
+            osv, ovalid = _eval(a, ctx)
+            osv = aligned(a, osv)
+            valid = _and_valid(valid, ovalid)
+            if fn == "arrays_overlap":
+                return _struct.arrays_overlap(out, osv), valid
+            out = setfn[fn](out, osv)
+        return out, valid
+    if fn in ("transform", "filter", "any_match", "all_match", "none_match"):
+        return _eval_higher_order(e, ctx, sv, rvalid)
+    if fn in ("transform_values", "map_filter"):
+        return _eval_map_higher_order(e, ctx, sv, rvalid)
+    raise NotImplementedError(f"structural function not implemented: {fn}")
+
+
+def _refs(e: RowExpression, out: set) -> set:
+    """The symbols an expression reads (inside nested lambdas too)."""
+    if isinstance(e, InputRef):
+        out.add(e.name)
+    elif isinstance(e, LambdaExpr):
+        _refs(e.body, out)
+    elif isinstance(e, Call):
+        for a in e.args:
+            _refs(a, out)
+    return out
+
+
+def _element_batch(ctx: CompileContext, w: int, body: RowExpression,
+                   param_cols):
+    """The [cap * w]-row batch a lambda body evaluates over: each outer
+    column the body reads, repeated once per element slot, and the
+    parameter columns (flattened element planes). Returns the batch and
+    the parameters' dictionaries."""
+    b = ctx.batch
+    used = _refs(body, set())
+    params = {sym for sym, *_ in param_cols}
+    names, types, cols = [], [], []
+    dicts = {}
+    for name, t, c in zip(b.names, b.types, b.columns):
+        if name not in used or name in params:
+            continue
+        names.append(name)
+        types.append(t)
+        cols.append(c if w == 1 else c.map_rows(
+            lambda p: torch.repeat_interleave(p, w, dim=0)))
+        carry_dicts(b.dicts, dicts, name)
+    extra = {}
+    for sym, t, vals, valid, d in param_cols:
+        names.append(sym)
+        types.append(t)
+        cols.append(Column(vals, valid))
+        if d is not None:
+            dicts[sym] = d
+            extra[sym] = d
+    live = b.live if w == 1 else torch.repeat_interleave(b.live, w)
+    return Batch(names, types, cols, live, dicts), extra
+
+
+def _eval_body(ctx: CompileContext, le: LambdaExpr, w: int, param_cols):
+    """A lambda body over the flattened planes: ([cap, w] values,
+    [cap, w] validity | None)."""
+    cap = ctx.batch.capacity
+    eb, extra = _element_batch(ctx, w, le.body, param_cols)
+    bv, bvalid = _eval(le.body, CompileContext(eb, ctx.out_dict, extra))
+    bv = torch.broadcast_to(bv, (cap * w,)).reshape(cap, w)
+    if bvalid is not None:
+        bvalid = torch.broadcast_to(bvalid, (cap * w,)).reshape(cap, w)
+    return bv, bvalid
+
+
+def _eval_higher_order(e: Call, ctx: CompileContext, sv: StructVal, rvalid):
+    """transform, filter and the matches: the body evaluates once over the
+    flattened [cap * W] element plane."""
+    fn = e.fn
+    cap = ctx.batch.capacity
+    le: LambdaExpr = e.args[1]
+    (psym, pt), = le.params
+    w = sv.width
+    if w == 0:
+        if fn == "transform":
+            return StructVal(torch.zeros((cap, 0),
+                                         dtype=torch_dtype(le.type.dtype),
+                                         device=ctx.device),
+                             sv.sizes, None), rvalid
+        if fn == "filter":
+            return sv, rvalid
+        return torch.full((cap,), fn in ("all_match", "none_match"),
+                          dtype=torch.bool, device=ctx.device), rvalid
+    present = sv.present()
+    pdict = _elem_dict(e.args[0], ctx) if pt.is_string else None
+    bv, bvalid = _eval_body(ctx, le, w, [
+        (psym, pt, sv.values.reshape(-1), sv.element_valid().reshape(-1),
+         pdict)])
+    if fn == "transform":
+        return StructVal(bv.to(torch_dtype(le.type.dtype)), sv.sizes,
+                         bvalid), rvalid
+    truth = bv.to(torch.bool)
+    if bvalid is not None:
+        truth = truth & bvalid  # a NULL predicate does not match
+    if fn == "filter":
+        return _struct.filter_elements(sv, truth & present), rvalid
+    if fn == "any_match":
+        return torch.any(truth & present, dim=1), rvalid
+    if fn == "all_match":
+        return torch.all(truth | ~present, dim=1), rvalid
+    return ~torch.any(truth & present, dim=1), rvalid  # none_match
+
+
+def _eval_map_higher_order(e: Call, ctx: CompileContext, sv: StructVal,
+                           rvalid):
+    """transform_values and map_filter: the (k, v) body evaluates over the
+    flattened key and value planes together."""
+    le: LambdaExpr = e.args[1]
+    (ksym, kt), (vsym, vt) = le.params
+    w = sv.width
+    if w == 0:
+        return sv, rvalid
+    present = sv.present()
+    kdict = _key_dict(e.args[0], ctx) if kt.is_string else None
+    vdict = _elem_dict(e.args[0], ctx) if vt.is_string else None
+    bv, bvalid = _eval_body(ctx, le, w, [
+        (ksym, kt, sv.keys.reshape(-1), present.reshape(-1), kdict),
+        (vsym, vt, sv.values.reshape(-1), sv.element_valid().reshape(-1),
+         vdict)])
+    if e.fn == "transform_values":
+        return StructVal(bv.to(torch_dtype(le.type.dtype)), sv.sizes,
+                         bvalid, keys=sv.keys), rvalid
+    truth = bv.to(torch.bool)
+    if bvalid is not None:
+        truth = truth & bvalid
+    return _struct.filter_elements(sv, truth & present), rvalid
+
+
+def _eval_zip_with(e: Call, ctx: CompileContext):
+    """zip_with(a, b, (x, y) -> ...): the planes pad to the longer array
+    (the shorter side's missing elements are NULL parameters); the body
+    evaluates once over the paired flattened planes."""
+    asv, avalid = _eval(e.args[0], ctx)
+    bsv, bvalid = _eval(e.args[1], ctx)
+    le: LambdaExpr = e.args[2]
+    (xsym, xt), (ysym, yt) = le.params
+    w = max(asv.width, bsv.width, 1)
+    av = pad_plane_width(asv.values, w)
+    bv = pad_plane_width(bsv.values, w)
+    aev = pad_plane_width(asv.element_valid(), w, False)
+    bev = pad_plane_width(bsv.element_valid(), w, False)
+    xdict = _elem_dict(e.args[0], ctx) if xt.is_string else None
+    ydict = _elem_dict(e.args[1], ctx) if yt.is_string else None
+    ov, ovalid = _eval_body(ctx, le, w, [
+        (xsym, xt, av.reshape(-1), aev.reshape(-1), xdict),
+        (ysym, yt, bv.reshape(-1), bev.reshape(-1), ydict)])
+    out = StructVal(ov.to(torch_dtype(le.type.dtype)),
+                    torch.maximum(asv.sizes, bsv.sizes), ovalid)
+    return out, _and_valid(avalid, bvalid)
+
+
+def _eval_reduce(e: Call, ctx: CompileContext):
+    """reduce(arr, init, (state, x) -> ...): a fold unrolled over the W
+    element slots, each step one body evaluation over every row."""
+    sv, rvalid = _eval(e.args[0], ctx)
+    iv, ivalid = _eval_arg(e.args[1], ctx)
+    le: LambdaExpr = e.args[2]
+    (ssym, st), (xsym, xt) = le.params
+    cap = ctx.batch.capacity
+    sdt = torch_dtype(st.dtype)
+    acc_v = torch.broadcast_to(iv, (cap,)).to(sdt)
+    acc_valid = (torch.broadcast_to(ivalid, (cap,)) if ivalid is not None
+                 else torch.ones(cap, dtype=torch.bool, device=ctx.device))
+    present = sv.present()
+    evalid = sv.element_valid()
+    xdict = _elem_dict(e.args[0], ctx) if xt.is_string else None
+    for j in range(sv.width):
+        bv, bvalid = _eval_body(ctx, le, 1, [
+            (ssym, st, acc_v, acc_valid, None),
+            (xsym, xt, sv.values[:, j], evalid[:, j], xdict)])
+        bv = bv[:, 0].to(sdt)
+        bvalid = (bvalid[:, 0] if bvalid is not None
+                  else torch.ones(cap, dtype=torch.bool, device=ctx.device))
+        active = present[:, j]
+        acc_v = torch.where(active, bv, acc_v)
+        acc_valid = torch.where(active, bvalid, acc_valid)
+    return acc_v, _and_valid(acc_valid, rvalid)
+
+
+# ---------------------------------------------------------------------------
+# geometry: WKT parsed on the host once per dictionary entry; the coded
+# kind rides on the WKT column's dictionary
+
+
+# bounded LRUs: a long-running process plans without bound
+_GEO_PLANES_CACHE: "OrderedDict" = OrderedDict()  # id(geoms) -> (geoms, planes)
+_GEO_CONST_CACHE: "OrderedDict" = OrderedDict()   # WKT literal -> (geoms, ok)
+
+
+def _geo_planes(geoms: tuple) -> np.ndarray:
+    from presto_tpu_torch.expr import geo as G
+
+    hit = _GEO_PLANES_CACHE.get(id(geoms))
+    if hit is not None and hit[0] is geoms:
+        _GEO_PLANES_CACHE.move_to_end(id(geoms))
+        return hit[1]
+    planes = G.edge_planes(geoms)
+    _GEO_PLANES_CACHE[id(geoms)] = (geoms, planes)
+    while len(_GEO_PLANES_CACHE) > 128:
+        _GEO_PLANES_CACHE.popitem(last=False)
+    return planes
+
+
+def _geo_parse_all(values):
+    """Lenient WKT parse: (geoms tuple, ok array). A value that does not
+    parse (or the '' a NULL slot holds) is an invalid row, not a failed
+    query."""
+    from presto_tpu_torch.expr import geo as G
+
+    parsed, ok = [], []
+    fallback = G.parse_wkt("POINT(0 0)")
+    for v in values:
+        try:
+            parsed.append(G.parse_wkt(str(v)))
+            ok.append(True)
+        except G.WktError:
+            parsed.append(fallback)
+            ok.append(False)
+    return tuple(parsed), np.asarray(ok, bool)
+
+
+def _geo_lut(gv, func, device, dtype=np.float64) -> torch.Tensor:
+    """geometry → scalar as a host table gathered by code."""
+    table = torch.as_tensor(
+        np.array([func(g) for g in gv.geoms]).astype(dtype), device=device)
+    return table[torch.clamp(gv.codes.to(torch.int64), 0,
+                             len(gv.geoms) - 1)]
+
+
+def _geo_points(gv, device):
+    """(x, y) tensors of a GeomVal; None when it holds geometries other
+    than points."""
+    from presto_tpu_torch.expr import geo as G
+
+    if gv.kind == "points":
+        return gv.x, gv.y
+    if all(G.is_point(g) for g in gv.geoms):
+        return (_geo_lut(gv, lambda g: G.point_xy(g)[0], device),
+                _geo_lut(gv, lambda g: G.point_xy(g)[1], device))
+    return None
+
+
+def _eval_geom_arg(a: RowExpression, ctx: CompileContext):
+    """A GEOMETRY-typed subexpression as (GeomVal, validity)."""
+    from presto_tpu_torch.expr.geo import GeomVal
+
+    v, valid = _eval(a, ctx)
+    if not isinstance(v, GeomVal):
+        raise NotImplementedError(
+            "GEOMETRY values only flow between geospatial functions")
+    return v, valid
+
+
+def _eval_geo(e: Call, ctx: CompileContext):
+    from presto_tpu_torch.expr import geo as G
+    from presto_tpu_torch.expr.geo import GeomVal
+
+    fn = e.fn
+    cap = ctx.batch.capacity
+    dev = ctx.device
+    if fn == "great_circle_distance":
+        vals = [_eval_arg(a, ctx) for a in e.args]
+        valid = None
+        for _, va in vals:
+            valid = _and_valid(valid, va)
+        lat1, lon1, lat2, lon2 = (v.to(torch.float64) for v, _ in vals)
+        return G.great_circle_distance(lat1, lon1, lat2, lon2), valid
+
+    if fn == "st_geometryfromtext":
+        a = e.args[0]
+        if isinstance(a, Constant):
+            key = str(a.value) if a.value is not None else None
+            if key is None:
+                geoms, ok = _geo_parse_all([""])
+            else:
+                hit = _GEO_CONST_CACHE.get(key)
+                if hit is None:
+                    hit = _geo_parse_all([key])
+                    _GEO_CONST_CACHE[key] = hit
+                    while len(_GEO_CONST_CACHE) > 256:
+                        _GEO_CONST_CACHE.popitem(last=False)
+                else:
+                    _GEO_CONST_CACHE.move_to_end(key)
+                geoms, ok = hit
+            valid = (None if bool(ok[0])
+                     else torch.zeros(cap, dtype=torch.bool, device=dev))
+            return GeomVal("coded", torch.zeros(cap, dtype=torch.int32,
+                                                device=dev),
+                           geoms, None, None), valid
+        codes, valid = _eval(a, ctx)
+        d = ctx.dict_for(a)
+        if d is None:
+            raise NotImplementedError(
+                "ST_GeometryFromText needs a dictionary-encoded varchar")
+        memo = d._memo.get("__geoms__")
+        if memo is None:
+            memo = _geo_parse_all(d.values)
+            d._memo["__geoms__"] = memo
+        geoms, ok = memo
+        if not geoms:
+            geoms, ok = _geo_parse_all([""])
+            return (GeomVal("coded", torch.zeros(cap, dtype=torch.int32,
+                                                 device=dev),
+                            geoms, None, None),
+                    torch.zeros(cap, dtype=torch.bool, device=dev))
+        okv = ctx.table(ok)[torch.clamp(codes.to(torch.int64), 0,
+                                        len(geoms) - 1)]
+        okv = okv & (codes >= 0)
+        return GeomVal("coded", codes, geoms, None, None), _and_valid(
+            valid, okv)
+
+    if fn == "st_point":
+        (x, xv), (y, yv) = (_eval_arg(a, ctx) for a in e.args)
+
+        def vec(v):
+            # literal coordinates arrive 0-d; the planes need rows
+            return torch.broadcast_to(v.to(torch.float64), (cap,))
+
+        return (GeomVal("points", None, None, vec(x), vec(y)),
+                _and_valid(xv, yv))
+
+    if fn in ("st_area", "st_perimeter", "st_length", "st_npoints",
+              "st_xmin", "st_xmax", "st_ymin", "st_ymax", "st_x", "st_y",
+              "st_centroid"):
+        gv, valid = _eval_geom_arg(e.args[0], ctx)
+        if gv.kind == "points":
+            if fn in ("st_x", "st_xmin", "st_xmax"):
+                return gv.x, valid
+            if fn in ("st_y", "st_ymin", "st_ymax"):
+                return gv.y, valid
+            if fn == "st_centroid":
+                return gv, valid
+            if fn == "st_npoints":
+                return torch.ones_like(gv.x, dtype=torch.int64), valid
+            return torch.zeros_like(gv.x), valid  # area/perimeter/length
+        if fn in ("st_x", "st_y"):
+            if not all(G.is_point(g) for g in gv.geoms):
+                raise NotImplementedError(f"{fn} needs POINT geometries")
+            i = 0 if fn == "st_x" else 1
+            return _geo_lut(gv, lambda g: G.point_xy(g)[i], dev), valid
+        if fn == "st_centroid":
+            return (GeomVal(
+                "points", None, None,
+                _geo_lut(gv, lambda g: G.geom_centroid(g)[0], dev),
+                _geo_lut(gv, lambda g: G.geom_centroid(g)[1], dev)), valid)
+        if fn == "st_npoints":
+            return _geo_lut(gv, G.geom_npoints, dev, np.int64), valid
+        host = {"st_area": G.geom_area, "st_perimeter": G.geom_perimeter,
+                "st_length": G.geom_length,
+                "st_xmin": lambda g: G.geom_bbox(g)[0],
+                "st_ymin": lambda g: G.geom_bbox(g)[1],
+                "st_xmax": lambda g: G.geom_bbox(g)[2],
+                "st_ymax": lambda g: G.geom_bbox(g)[3]}
+        return _geo_lut(gv, host[fn], dev), valid
+
+    # binary relations
+    ga, va = _eval_geom_arg(e.args[0], ctx)
+    gb, vb = _eval_geom_arg(e.args[1], ctx)
+    valid = _and_valid(va, vb)
+    pa, pb = _geo_points(ga, dev), _geo_points(gb, dev)
+
+    def inside_area(poly, px, py):
+        # only polygons enclose points (a linestring never does)
+        inside = G.point_in_coded(_geo_planes(poly.geoms), poly.codes,
+                                  px, py)
+        return inside & (_geo_lut(poly, lambda g: float(G.is_area(g)),
+                                  dev) > 0)
+
+    if fn in ("st_contains", "st_intersects"):
+        if ga.kind == "coded" and pb is not None and pa is None:
+            return inside_area(ga, pb[0], pb[1]), valid
+        if (fn == "st_intersects" and gb.kind == "coded"
+                and pa is not None and pb is None):
+            return inside_area(gb, pa[0], pa[1]), valid
+        if pa is not None and pb is not None:
+            return (pa[0] == pb[0]) & (pa[1] == pb[1]), valid
+        if fn == "st_contains" and pa is not None and pb is None:
+            # a point never contains a polygon or linestring
+            return torch.zeros_like(pa[0], dtype=torch.bool), valid
+        raise NotImplementedError(
+            f"{fn} between two non-point geometries is not supported")
+
+    if fn == "st_distance":
+        if pa is not None and pb is not None:
+            return torch.hypot(pa[0] - pb[0], pa[1] - pb[1]), valid
+        poly, pt = (ga, pb) if pa is None else (gb, pa)
+        if pt is None:
+            raise NotImplementedError(
+                "ST_Distance between two non-point geometries is not "
+                "supported")
+        d = G.point_seg_distance(_geo_planes(poly.geoms), poly.codes,
+                                 pt[0], pt[1])
+        inside = inside_area(poly, pt[0], pt[1])
+        return torch.where(inside, torch.zeros_like(d), d), valid
+
+    raise NotImplementedError(f"geospatial function {fn}")

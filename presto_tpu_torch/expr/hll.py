@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import math
 
+import re
+
 import numpy as np
 
 # must equal expr.compile.HLL_M (asserted by tests): 2^12 registers,
@@ -65,8 +67,12 @@ def regs_and_ranks(values: np.ndarray,
 def serialize(ranks: np.ndarray) -> str:
     """Dense m-register rank array → sparse ASCII entry."""
     nz = np.nonzero(ranks)[0]
-    body = ",".join(f"{int(i)}:{int(ranks[i])}" for i in nz)
+    body = ",".join(map("{}:{}".format, nz.tolist(), ranks[nz].tolist()))
     return f"{_MAGIC};{HLL_M};{body}"
+
+
+# a sparse body: "i:r" pairs separated by commas
+_PAIRS = re.compile(r"[^:,]*:[^:,]*(?:,[^:,]*:[^:,]*)*")
 
 
 def deserialize(entry: str) -> np.ndarray | None:
@@ -79,13 +85,14 @@ def deserialize(entry: str) -> np.ndarray | None:
             return None
         ranks = np.zeros(m, np.int64)
         if parts[2]:
-            for pair in parts[2].split(","):
-                i, r = pair.split(":")
-                i = int(i)
-                if not 0 <= i < m:  # negative would wrap via Python indexing
-                    return None
-                ranks[i] = max(ranks[i], int(r))
-    except (ValueError, IndexError):
+            if not _PAIRS.fullmatch(parts[2]):
+                return None
+            toks = list(map(int, re.split("[:,]", parts[2])))
+            idx = np.array(toks[0::2], dtype=np.int64)
+            if ((idx < 0) | (idx >= m)).any():  # negative would wrap
+                return None
+            np.maximum.at(ranks, idx, np.array(toks[1::2], dtype=np.int64))
+    except ValueError:
         return None
     return ranks
 

@@ -77,6 +77,16 @@ def build(values, weights=None, compression: float = DEFAULT_COMPRESSION) -> str
     return _compress(v[order], w[order], compression)
 
 
+def build_sorted(values: np.ndarray, weights: np.ndarray,
+                 compression: float = DEFAULT_COMPRESSION) -> str | None:
+    """build() over values already in ascending order (ties in input
+    order) with positive weights: the same digest, without the sort."""
+    if len(values) == 0:
+        return None
+    return _compress(np.asarray(values, np.float64),
+                     np.asarray(weights, np.float64), compression)
+
+
 def _compress(v: np.ndarray, w: np.ndarray, compression: float) -> str:
     """Sorted values+weights → serialized digest (vectorized cluster
     assignment in k-space; one segment-sum per plane)."""

@@ -22,7 +22,12 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-from presto_tpu_torch.batch import Batch, Column, round_up_capacity
+from presto_tpu_torch.batch import (
+    Batch,
+    Column,
+    carry_dicts,
+    round_up_capacity,
+)
 from presto_tpu_torch.ops import hash_kernels
 from presto_tpu_torch.ops.hashing import hash_columns, slot_hash
 from presto_tpu_torch.ops.sort import permute_batch
@@ -310,13 +315,11 @@ def gather_join_output(probe: Batch, table, probe_row, build_idx, out_live,
         names.append(c)
         types.append(probe.type_of(c))
         cols.append(probe.column(c).gather(probe_row))
-        if c in probe.dicts:
-            dicts[c] = probe.dicts[c]
+        carry_dicts(probe.dicts, dicts, c)
     for c in build_cols:
         out_name = build_prefix + c
         names.append(out_name)
         types.append(table.batch.type_of(c))
         cols.append(table.batch.column(c).gather(build_idx))
-        if c in table.batch.dicts:
-            dicts[out_name] = table.batch.dicts[c]
+        carry_dicts(table.batch.dicts, dicts, c, out_name)
     return Batch(names, types, cols, out_live, dicts)

@@ -26,6 +26,7 @@ from presto_tpu_torch.plan.nodes import (
     Aggregate,
     Filter,
     HashJoin,
+    IndexJoin,
     Limit,
     MultiwayJoin,
     Output,
@@ -419,6 +420,18 @@ def _observed(node: PlanNode, catalog, site: str):
     return None
 
 
+def _index_table_rows(node: IndexJoin, catalog) -> Optional[float]:
+    """An index join's build rows at their most: the indexed table's, of
+    which a lookup returns a part (a table scan's estimate)."""
+    if catalog is None:
+        return None
+    try:
+        handle = catalog.connectors[node.catalog].get_table(node.table)
+    except Exception:
+        return None
+    return float(handle.row_count or 0) or 1e6
+
+
 def choose_breaker_engine(node: PlanNode, catalog,
                           override: str = "auto", hbo: str = "off"):
     """(engine, why) for a pipeline breaker: ``engine`` ∈ {sort, hash}.
@@ -466,8 +479,8 @@ def choose_breaker_engine(node: PlanNode, catalog,
         if dup < HASH_MIN_DUPLICATION:
             return "sort", f"duplication x{dup:.2g} < {HASH_MIN_DUPLICATION:.2g}{suffix}"
         return "hash", f"{src} {groups:.3g} groups, x{dup:.3g} duplication{suffix}"
-    if isinstance(node, (HashJoin, SemiJoin)):
-        keys = node.right_keys
+    if isinstance(node, (HashJoin, SemiJoin, IndexJoin)):
+        keys = node.left_keys
         if len(keys) > HASH_MAX_KEY_WIDTH:
             return "sort", f"{len(keys)} join keys > {HASH_MAX_KEY_WIDTH}"
         build_rows = None
@@ -478,10 +491,13 @@ def choose_breaker_engine(node: PlanNode, catalog,
                 build_rows = float(h["actual"])
                 src, suffix = "observed", " (hbo: observed)"
         if build_rows is None:
-            build = derive(node.right, catalog)
-            if build is None or not build.rows:
+            if isinstance(node, IndexJoin):
+                build_rows = _index_table_rows(node, catalog)
+            else:
+                build = derive(node.right, catalog)
+                build_rows = None if build is None else build.rows
+            if not build_rows:
                 return "sort", "no build-side stats"
-            build_rows = build.rows
         if build_rows > HASH_MAX_BUILD_ROWS:
             return "sort", f"{src} build {build_rows:.3g} rows > {HASH_MAX_BUILD_ROWS}{suffix}"
         return "hash", f"{src} build {build_rows:.3g} rows{suffix}"

@@ -43,3 +43,12 @@ def test_guard_covers_tpcds_and_window_modules():
                  "presto_tpu_torch/catalog/tpcds_queries.py",
                  "presto_tpu_torch/ops/window.py"):
         assert path in files, path
+
+
+def test_guard_covers_structural_and_geo_modules():
+    """The ARRAY/MAP functions and the geometry functions are among the
+    files guarded above."""
+    files = set(_port_files())
+    for path in ("presto_tpu_torch/expr/structural.py",
+                 "presto_tpu_torch/expr/geo.py"):
+        assert path in files, path

@@ -160,11 +160,12 @@ def reference_frames_dir(tmp_path_factory):
     return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
 
 
-def reference_frame(ref, q: str, frames_dir):
-    """The JAX package's frame of TPC-H query q (its per-batch path, the
-    CBO's engines), computed once in this session and shared: the first
-    process to claim it computes it, another one waits for its file (and
-    computes it itself if none appears within 120 s)."""
+def reference_frame(ref, q: str, frames_dir, sql: str = None):
+    """The JAX package's frame of TPC-H query q (or of `sql`, named q) on
+    its per-batch path with the CBO's engines, computed once in this
+    session and shared: the first process to claim it computes it, another
+    one waits for its file (and computes it itself if none appears within
+    120 s)."""
     path = frames_dir / f"tpch_reference_{q}.pkl"
     try:
         os.close(os.open(path.with_name(f"{path.name}.claim"),
@@ -175,7 +176,8 @@ def reference_frame(ref, q: str, frames_dir):
             time.sleep(0.05)
         if path.exists():
             return pd.read_pickle(path)
-    want = RefRunner(ref, RefConfig(fragment_fusion=False)).run(TPCH[q])
+    want = RefRunner(ref, RefConfig(fragment_fusion=False)).run(
+        TPCH[q] if sql is None else sql)
     tmp = path.with_name(f"{path.name}.{os.getpid()}")
     want.to_pickle(tmp)
     os.replace(tmp, path)  # atomic: a reader never sees a partial file
@@ -269,29 +271,36 @@ def test_default_device_is_cuda():
 
 
 def test_unsupported_function_names_itself(catalogs):
+    """A registered scalar function (the JAX package lowers it into its
+    programs) is one the port still refuses, naming it."""
+    from presto_tpu_torch.functions import registry
+    from presto_tpu_torch.types import DOUBLE
+
     _, port = catalogs
     pr = LocalRunner(port, device="cpu")
-    with pytest.raises(NotImplementedError, match="st_x"):
-        pr.run("select st_x(st_point(n_nationkey, n_regionkey)) from nation")
+    registry().register_scalar("plus_one", DOUBLE, lambda x: x + 1, arity=1)
+    try:
+        with pytest.raises(NotImplementedError, match="udf:plus_one"):
+            pr.run("select plus_one(n_nationkey) from nation")
+    finally:
+        registry().unregister("plus_one")
 
 
-def _with_nation_index(cat):
-    """The port's TPC-H catalog with a keyed index on nation.n_nationkey,
-    so the planner turns a join to nation into an IndexJoin (the memory
-    connector itself exposes none)."""
-    from presto_tpu_torch.connector import Catalog
+def _with_nation_index(cat, catalog_cls):
+    """A TPC-H catalog whose nation table declares an index on
+    n_nationkey (the memory connector's `index_keys`), so the planner
+    turns a join to nation into an IndexJoin. The tables are shared with
+    `cat`."""
+    import copy
 
     conn = cat.connectors["tpch"]
-
-    class Indexed(type(conn)):
-        def get_index(self, handle, key_columns):
-            if handle.name == "nation" and list(key_columns) == ["n_nationkey"]:
-                return object()
-            return None
-
-    indexed = Indexed.__new__(Indexed)
-    indexed.__dict__.update(conn.__dict__)
-    out = Catalog()
+    conn.get_table("nation")
+    indexed = copy.copy(conn)
+    indexed.tables = dict(conn.tables)
+    nation = copy.copy(conn.tables["nation"])
+    nation.index_keys = [["n_nationkey"]]
+    indexed.tables["nation"] = nation
+    out = catalog_cls()
     out.register("tpch", indexed, default=True)
     return out
 
@@ -316,30 +325,37 @@ def _with_nation_index(cat):
     ("select n_name from nation union select r_name from region", None),
     ("select n_name, r_name from nation, region "
      "where n_regionkey < r_regionkey", None),
-    ("select x from unnest(array[1, 2]) t(x)", "no executor for Unnest"),
+    ("select x from unnest(array[1, 2]) t(x)", None),
     ("select sqrt(n_nationkey) from nation", None),
     ("select upper(n_name) from nation", None),
     ("select n_name from nation where regexp_like(n_name, '^A')", None),
     ("select n_regionkey, array_agg(n_name) from nation group by n_regionkey",
-     "aggregate array_agg"),
+     None),
     ("select s_name, n_name from supplier join nation "
-     "on s_nationkey = n_nationkey", "no executor for IndexJoin"),
+     "on s_nationkey = n_nationkey", None),
 ], ids=["like", "coalesce", "case", "left_join", "min", "count_column",
         "scalar_subquery", "limit", "window", "union", "nljoin", "unnest",
         "sqrt", "upper", "regexp_like", "array_agg", "index_join"])
 def test_sql_outside_the_slice_raises(catalogs, sql, what):
     """SQL that an earlier slice refused now equals the JAX package's
-    result (exactly: integers, strings and counts; sqrt's floats to
-    rtol=1e-12); SQL the port still lacks raises NotImplementedError naming
-    what is missing, rather than running untested code."""
+    result (exactly: integers, strings, counts and array elements; sqrt's
+    floats to rtol=1e-12); SQL the port still lacks raises
+    NotImplementedError naming what is missing, rather than running
+    untested code. The index join runs with nation indexed on
+    n_nationkey in both packages."""
     ref, port = catalogs
     if what is not None:
-        if "IndexJoin" in what:
-            port = _with_nation_index(port)
         pr = LocalRunner(port, device="cpu")
         with pytest.raises(NotImplementedError, match=what):
             pr.run(sql)
         return
+    if "join nation" in sql:
+        from presto_tpu.connector import Catalog as RefCatalog
+        from presto_tpu_torch.connector import Catalog
+
+        ref = _with_nation_index(ref, RefCatalog)
+        port = _with_nation_index(port, Catalog)
+        assert "IndexJoin" in LocalRunner(port, device="cpu").explain(sql)
     pr = LocalRunner(port, device="cpu")
     want = RefRunner(ref, RefConfig(fragment_fusion=False)).run(sql)
     assert_frames_equal(pr.run(sql), want, sql)
