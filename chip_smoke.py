@@ -62,6 +62,24 @@
    and join_probe; launches, warm median of 3 and device time of each;
    each kernel's largest input of the phase held to its contract; the
    same at SF 0.01 on the card against the CPU.
+   Then memory-bounded execution (`phase_memory`) on the same SF 1
+   catalog, spilling into a `.spill-*` directory under the checkout that
+   must be empty after every run and is removed at the end: Q18 and Q13
+   under the default config take GRACE (their aggregates' presize passes
+   agg_cap_ceiling) and equal their spill-off runs and oracles, both
+   walls printed; Q3 and Q18's inner aggregate under a pool of half Q3's
+   largest build spill (Q3's spilled build repartitions) and equal their
+   default runs and oracles, and the same pool with spill off raises
+   ExceededMemoryLimit; Q3, Q5, Q9 and Q18 with 8 radix partitions and Q3
+   and Q18 with every partition spilled equal their default runs; Q2,
+   Q3, Q5, Q7, Q8, Q9, Q10 and a customer-orders fanout chain under
+   join_mode=multiway equal their binary runs (the fanout leg's
+   join_probe ladder under hash, the binary cascade under auto), then a
+   join_probe case at the largest F the ladder reached; the first runs
+   profiled, warm medians of 3 under hash (and both engines for GRACE);
+   the largest inputs held to their contracts; the configurations at SF
+   0.01 on the card against the CPU. The 22-query and TPC-DS lines say
+   whether a query took GRACE (`grace`).
    Then TPC-DS (`phase_tpcds`): the 44 queries of
    presto_tpu_torch/catalog/tpcds_queries.py at SF 1 under auto and hash
    (engines agree; nine numpy/pandas oracles; every query returns rows;
@@ -94,10 +112,12 @@ Prints a `tpch22` JSON line (each query and engine: rows, warm median,
 first run, lineitem rows/s, launches, device time), a `surface` JSON line
 (each statement and engine: rows, warm median, launches, device time and
 busy share), a `structural` JSON line (the same for the structural
-phase), a `tpcds` JSON line
+phase), a `memory` JSON line (each unit, run and engine: rows, warm
+median, first run, launches, busy share, the spill counters), a `tpcds`
+JSON line
 (the same with store_sales rows/s, and INTERSECT ALL's), a `kernels` JSON
 line (with each kernel's launches on the TPC-DS path and in the
-structural phase's first runs under hash)
+structural and memory phases' first runs under hash)
 (`ms` is the cold kernel-alone time where one was taken; `large` holds the
 large shapes, `ms` cold and `ms_warm`), the run's duration, then as its
 last line
@@ -632,11 +652,43 @@ def boundary_slots(torch, rng, planes, tcap, shift, where, n=None):
     return (tcap - 1 - h % 64).to(torch.int32)  # "table end"
 
 
-def phase_kernels(torch):
-    import numpy as np
-
+def join_probe_case(torch, rng, bn, dup, fanouts, collide=False):
+    """join_insert of `bn` build rows over `dup` distinct keys (all on one
+    slot when `collide`), checked by its invariants, then join_probe of as
+    many probe rows (half of them build keys) at each fanout against the
+    plain version. Returns (join_insert error, join_probe error)."""
     from presto_tpu_torch.ops import hash_kernels as hk
     from presto_tpu_torch.ops.hashing import hash_columns, slot_hash
+
+    dev = torch.device("cuda")
+    bkeys = synthetic_planes(torch, rng, bn, 1, dup, dev)
+    blive = torch.from_numpy(rng.random(bn) < 0.9).to(dev)
+    tcap = 2 * bn
+    bslot = (torch.full((bn,), 7, dtype=torch.int32, device=dev) if collide
+             else slot_hash(hash_columns(list(bkeys)), tcap))
+    sr, ji_err = check_join_insert(torch, bslot, blive, tcap)
+    print(f"kernel join_insert: n={bn} tcap={tcap} distinct={dup}"
+          f"{' one-slot collisions' if collide else ''} invariants hold "
+          f"(rows cut: the plain version is serial)")
+    psr = hk.join_insert_plain(bslot.cpu(), blive.cpu(), tcap)
+    pkeys = synthetic_planes(torch, rng, bn, 1, dup, dev)
+    hit = torch.from_numpy(rng.integers(0, bn, bn // 2)).to(dev)
+    pkeys[0, : bn // 2] = bkeys[0, hit]
+    plive = torch.from_numpy(rng.random(bn) < 0.9).to(dev)
+    pslot = (torch.full((bn,), 7, dtype=torch.int32, device=dev) if collide
+             else slot_hash(hash_columns(list(pkeys)), tcap))
+    jp_err = 0
+    for f in fanouts:
+        jp_err = max(jp_err, check_join_probe(torch, pslot, pkeys, plive, sr,
+                                              bkeys, f, psr))
+        print(f"kernel join_probe: n={bn} F={f} build={bn}"
+              f"{' one-slot collisions' if collide else ''}: counts, "
+              f"overflow, match sets and -1 padding equal to plain (exact)")
+    return ji_err, jp_err
+
+
+def phase_kernels(torch):
+    import numpy as np
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261017)
@@ -679,30 +731,8 @@ def phase_kernels(torch):
     for bn, dup, fanouts, collide in ((m, 20000, (8, 1, 16), False),
                                       (2048, 300, (8, 16), True),
                                       (4096, 80, (16, 32, 64), False)):
-        bkeys = synthetic_planes(torch, rng, bn, 1, dup, dev)
-        blive = torch.from_numpy(rng.random(bn) < 0.9).to(dev)
-        tcap = 2 * bn
-        bslot = (torch.full((bn,), 7, dtype=torch.int32, device=dev) if collide
-                 else slot_hash(hash_columns(list(bkeys)), tcap))
-        sr, err = check_join_insert(torch, bslot, blive, tcap)
-        ji_err = max(ji_err, err)
-        print(f"kernel join_insert: n={bn} tcap={tcap} distinct={dup}"
-              f"{' one-slot collisions' if collide else ''} invariants hold "
-              f"(rows cut: the plain version is serial)")
-        psr = hk.join_insert_plain(bslot.cpu(), blive.cpu(), tcap)
-        pkeys = synthetic_planes(torch, rng, bn, 1, dup, dev)
-        hit = torch.from_numpy(rng.integers(0, bn, bn // 2)).to(dev)
-        pkeys[0, : bn // 2] = bkeys[0, hit]
-        plive = torch.from_numpy(rng.random(bn) < 0.9).to(dev)
-        pslot = (torch.full((bn,), 7, dtype=torch.int32, device=dev) if collide
-                 else slot_hash(hash_columns(list(pkeys)), tcap))
-        for f in fanouts:
-            jp_err = max(jp_err, check_join_probe(torch, pslot, pkeys, plive,
-                                                  sr, bkeys, f, psr))
-            print(f"kernel join_probe: n={bn} F={f} build={bn}"
-                  f"{' one-slot collisions' if collide else ''}: counts, "
-                  f"overflow, match sets and -1 padding equal to plain "
-                  f"(exact)")
+        errs = join_probe_case(torch, rng, bn, dup, fanouts, collide)
+        ji_err, jp_err = max(ji_err, errs[0]), max(jp_err, errs[1])
     # the launch refuses a fanout that is not a power of two, as the
     # wrapper does (it checks F before it reads any pointer)
     from presto_tpu_torch.kernels._build import library, stream_ptr
@@ -878,8 +908,9 @@ def record_run(torch, run):
     return rec.inputs
 
 
-def timed_runs(torch, runner, sql, reps=3):
-    runner.run(sql)  # warm-up
+def warm_runs(torch, runner, sql, reps=3):
+    """The last of `reps` timed runs of a warm runner, and their median
+    wall time."""
     ts = []
     out = None
     for _ in range(reps):
@@ -889,6 +920,11 @@ def timed_runs(torch, runner, sql, reps=3):
         torch.cuda.synchronize()
         ts.append(time.perf_counter() - t0)
     return out, statistics.median(ts)
+
+
+def timed_runs(torch, runner, sql, reps=3):
+    runner.run(sql)  # warm-up
+    return warm_runs(torch, runner, sql, reps)
 
 
 def phase_queries(torch):
@@ -1030,6 +1066,9 @@ def columns_equal(got, want, label, rtol=1e-12) -> None:
             f"{label}: columns {list(got.columns)} vs {list(want.columns)}")
     require(len(got) == len(want), f"{label}: {len(got)} rows vs {len(want)}")
     for c in want.columns:
+        if got[c].reset_index(drop=True).equals(
+                want[c].reset_index(drop=True)):
+            continue  # the same dtype, values and NULLs: at C speed
         g, w = _nulls_as_none(got[c]), _nulls_as_none(want[c])
         present = [v for v in g + w if v is not None]
         if present and all(isinstance(v, float) for v in present):
@@ -1251,6 +1290,7 @@ def phase_tpch22(torch, cat, errs):
             torch.cuda.synchronize()
             first = time.perf_counter() - t1
             launches = {k: v for k, v in launch_counts().items() if v}
+            grace = runners[eng].last_stats.get("spill.partitions", 0) > 0
             if q == "q18" and eng == "hash":
                 for k in ("join_insert", "join_probe", "group_insert"):
                     require(launches.get(k, 0) > 0,
@@ -1273,8 +1313,9 @@ def phase_tpch22(torch, cat, errs):
             summary.append({"query": q, "engine": eng, "rows": len(out),
                             "warm_ms": sec * 1e3, "first_ms": first * 1e3,
                             "lineitem_rows_per_s": n_lineitem / sec,
-                            "launches": launches, **dev})
-            print(f"tpch {q} {eng} SF {SF}: {len(out)} rows; warm median of 3 "
+                            "grace": grace, "launches": launches, **dev})
+            print(f"tpch {q} {eng} SF {SF}: grace {grace}; {len(out)} rows; "
+                  f"warm median of 3 "
                   f"{sec * 1e3:.1f} ms, {n_lineitem / sec:.4g} lineitem "
                   f"rows/s; first run {first * 1e3:.1f} ms; launches "
                   f"{json.dumps(launches)}; device time of one run "
@@ -2167,6 +2208,362 @@ def phase_structural(torch, cat, errs):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b''': memory-bounded execution
+
+# a fanout multiway leg: customer's orders (TPC-H gives some customers
+# dozens), LEFT so that only exact counts (hash) run it in one pass
+MW_FANOUT = ("select c.c_custkey, o.o_orderkey, n.n_name from customer c "
+             "left join orders o on c.c_custkey = o.o_custkey "
+             "left join nation n on c.c_nationkey = n.n_nationkey")
+# outside grace_default the memory phase times a unit's first entry under
+# hash (warm median of 3, the device time of one more run) and each other
+# entry under hash whose first run took under this many seconds
+WARM_LIMIT_S = 1.5
+# Q18's inner aggregate (the repo's Q18 text): 1.5 M groups at SF 1
+Q18_INNER = ("select l_orderkey, sum(l_quantity) as total_qty from lineitem "
+             "group by l_orderkey having sum(l_quantity) > 250")
+SPILL_STATS = ("spill.partitions", "spill.repartitions", "spill.revocations",
+               "spill.role_reversals", "spill.bytes", "spill.rows",
+               "radix.partitions_spilled", "multiway.cascade_fallbacks")
+
+
+def memory_units(pool):
+    """unit -> [(label, query, config, base config)]: `query` names a TPC-H
+    query of the port's texts, MW_FANOUT or Q18_INNER; each run is held to
+    the same query under `base` (and to its oracle where there is one)."""
+    grace = [(q, q, {}, {"spill_enabled": False}) for q in ("q18", "q13")]
+    # Q3 takes two spill partitions, so that its spilled build
+    # repartitions. Q18's aggregate (GRACE, 1.5 M groups) replays group
+    # tables of up to 2^17 groups, 2^18 slots under hash, which the pool
+    # accounts: it gets the whole build's bytes (with two partitions it
+    # would split six levels down: a split takes the next bits of the JAX
+    # package's host hash, which for one integer key is the key itself,
+    # and bits 3 and 4 of every TPC-H order key are 0)
+    radix8 = {"radix_partitions": 8}
+    forced = {"radix_partitions": 4, "join_spill_budget_bytes": 1}
+    mw = {"join_mode": "multiway"}
+    return {
+        "grace_default": grace,
+        "pool_spill": [("q3", "q3", {"memory_pool_bytes": pool,
+                                     "spill_partitions": 2}, {}),
+                       ("q18_inner", "q18_inner",
+                        {"memory_pool_bytes": 2 * pool}, {})],
+        "radix": ([(f"{q}_radix8", q, radix8, {})
+                   for q in ("q3", "q5", "q9", "q18")]
+                  + [(f"{q}_forced_spill", q, forced, {})
+                     for q in ("q3", "q18")]),
+        "multiway": [(q, q, mw, {"join_mode": "off"})
+                     for q in ("q2", "q3", "q5", "q7", "q8", "q9", "q10",
+                               "mw_fanout")],
+    }
+
+
+def memory_sql(q, sf):
+    from presto_tpu_torch.catalog.tpch_queries import QUERIES as TPCH
+
+    if q == "mw_fanout":
+        return MW_FANOUT
+    if q == "q18_inner":
+        return Q18_INNER
+    return at_scale(q, TPCH[q], sf)
+
+
+def q18_inner_oracle(conn):
+    import numpy as np
+    import pandas as pd
+
+    conn.get_table("lineitem")
+    a = conn.tables["lineitem"].arrays
+    qty = pd.Series(a["l_quantity"]).groupby(a["l_orderkey"]).sum()
+    big = qty[qty > 250]  # l_quantity is BIGINT
+    return pd.DataFrame({"l_orderkey": big.index.to_numpy(np.int64),
+                         "total_qty": big.to_numpy(np.int64)})
+
+
+def largest_build_bytes(runner, sql):
+    """batch_device_bytes of the largest build side of the query's hash
+    joins, each built once on the card."""
+    from presto_tpu_torch.exec.runtime import ExecContext, execute_node
+    from presto_tpu_torch.memory import batch_device_bytes
+    from presto_tpu_torch.plan.nodes import HashJoin
+
+    best = 0
+
+    def walk(n):
+        nonlocal best
+        if isinstance(n, HashJoin):
+            ctx = ExecContext(runner.catalog, runner.config, runner.device)
+            best = max(best, sum(batch_device_bytes(b)
+                                 for b in execute_node(n.right, ctx)))
+        for c in n.children():
+            walk(c)
+
+    walk(runner.plan(sql).root)
+    return best
+
+
+def phase_memory(torch, cat, errs):
+    """Memory-bounded execution on the TPC-H SF 1 catalog, each unit of
+    `memory_units` under auto and hash, spilling into a directory under
+    the run's root that must be empty after every run (every spill file
+    closed and unlinked) and is removed at the end:
+    - grace_default: Q18 and Q13 under the default config take GRACE
+      (`spill.partitions` > 0) and equal the same queries with spill off
+      (in-memory growth) and their oracles; both walls printed;
+    - pool_spill: Q3 under a pool of half its largest build
+      (`largest_build_bytes`) and two spill partitions (its build spills
+      and repartitions), Q18's inner aggregate (GRACE) under a pool of the
+      whole build; equal to the default runs and the oracles; the same
+      pool with spill off raises ExceededMemoryLimit on Q3;
+    - radix: Q3, Q5, Q9 and Q18 with 8 radix partitions, Q3 and Q18 with
+      4 and a 1-byte budget (every partition spills): equal to the
+      default runs;
+    - multiway: Q2, Q3, Q5, Q7, Q8, Q9, Q10 and MW_FANOUT under
+      join_mode=multiway equal join_mode=off; the phase prints which
+      plans show a MultiwayJoin (the JAX package's rule collapses a
+      left-deep chain; which queries give one depends on the plan at
+      this scale) and requires MW_FANOUT and at least one TPC-H query
+      among them; MW_FANOUT under hash runs one pass whose fanout leg
+      launches join_probe up a ladder from F = 16, under auto it falls
+      back to the binary cascade; join_probe is then checked against its
+      plain version at the largest F reached (`join_probe_case`).
+    Per run: the first run (its launches, counts reset just before it and
+    read just after; under hash each kernel's largest input recorded), and
+    spill.* with the bytes and rows spilled; then, in grace_default under
+    both engines and elsewhere under hash for a unit's first entry and
+    where the first run took under WARM_LIMIT_S, the warm median of 3 and
+    the device time of one more run (torch.profiler) over it, the busy
+    share. The largest inputs of the hash first runs are held to their
+    contracts. At SF 0.01 every entry's configuration gives the same
+    frames on the card and the CPU. Prints the seconds each unit took, a
+    `memory` JSON line; returns the first runs' launches under hash,
+    summed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from presto_tpu_torch.catalog.tpch import tpch_catalog
+    from presto_tpu_torch.exec import ExecConfig, LocalRunner
+    from presto_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from presto_tpu_torch.memory import ExceededMemoryLimit
+    from presto_tpu_torch.ops import hash_kernels as hk
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    spill_dir = tempfile.mkdtemp(prefix=".spill-", dir=root)
+    conn = cat.connectors["tpch"]
+    oracles = {"q3": oracle(conn, "q3"), "q18_inner": q18_inner_oracle(conn)}
+    oracles.update({q: oracle22(conn, q) for q in ("q13", "q18")})
+    pool = largest_build_bytes(
+        LocalRunner(cat, ExecConfig()), memory_sql("q3", SF)) // 2
+    units = memory_units(pool)
+    print(f"memory: oracles and Q3's largest build ready in "
+          f"{time.perf_counter() - t0:.1f} s; pool of {pool} bytes (half "
+          f"of it); spill directory {os.path.basename(spill_dir)}")
+    ladder = []  # the fanouts join_probe launched at
+    real_probe = hk._join_probe_cuda
+
+    def probe_at(*args):
+        ladder.append(args[-1])
+        return real_probe(*args)
+
+    def runner(cfg, eng, sf_cat=cat, device=None):
+        return LocalRunner(sf_cat, ExecConfig(breaker_engine=eng,
+                                              spill_dir=spill_dir, **cfg),
+                           device=device)
+
+    def no_spill_left(label):
+        left = os.listdir(spill_dir)
+        require(not left, f"{label}: spill files left: {left[:4]}")
+
+    summary = []
+    hash_launches = {}
+    largest = {}  # kernel -> (size, arguments): its largest input
+    collapsed = set()  # the multiway runs whose plan has a MultiwayJoin
+    frames = {}  # (sql, engine, config) -> the frame of its first run
+
+    def config_key(sql, eng, cfg):
+        return sql, eng, tuple(sorted(cfg.items()))
+
+    unit_s = {}  # unit -> seconds of the SF 1 runs
+    try:
+        for unit, entries in units.items():
+            t_unit = time.perf_counter()
+            for label, q, cfg, base_cfg in entries:
+                sql = memory_sql(q, SF)
+                for eng in ENGINES:
+                    name = f"memory {unit} {label} {eng}"
+                    r = runner(cfg, eng)
+                    key = config_key(sql, eng, base_cfg)
+                    base_runner = runner(base_cfg, eng)
+                    if key not in frames:
+                        frames[key] = base_runner.run(sql)
+                        no_spill_left(f"{name} base")
+                    base = frames[key]
+                    if label == "mw_fanout":
+                        hk._join_probe_cuda = probe_at
+                    # the first run; under hash each kernel's inputs
+                    # recorded
+                    box = {}
+                    reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    try:
+                        if eng == "hash":
+                            inputs = record_run(torch, lambda: box.update(
+                                out=r.run(sql)))
+                            for k, (size, args) in inputs.items():
+                                if size > largest.get(k, (0, None))[0]:
+                                    largest[k] = (size, args)
+                            del inputs
+                        else:
+                            box["out"] = r.run(sql)
+                            torch.cuda.synchronize()
+                    finally:
+                        hk._join_probe_cuda = real_probe
+                    first = time.perf_counter() - t1
+                    out = box["out"]
+                    launches = {k: v for k, v in launch_counts().items()
+                                if v}
+                    frames.setdefault(config_key(sql, eng, cfg), out)
+                    stats = {k: r.last_stats.get(k, 0) for k in SPILL_STATS}
+                    no_spill_left(name)
+                    if eng == "hash":
+                        for k, v in launches.items():
+                            hash_launches[k] = hash_launches.get(k, 0) + v
+                    keys = ORDER_KEYS.get(q)
+                    how = frames_agree(out, base, keys, f"{name} vs base")
+                    if q in ORDER_KEYS and q in oracles:
+                        check_oracle(out, oracles[q], q, f"{name} oracle")
+                    elif q in oracles:
+                        frames_agree(out, oracles[q], None, f"{name} oracle")
+                    check_memory_unit(unit, label, eng, r, sql, stats,
+                                      launches, collapsed)
+                    if unit == "pool_spill" and label == "q3":
+                        try:
+                            runner(dict(cfg, spill_enabled=False),
+                                   eng).run(sql)
+                        except ExceededMemoryLimit as e:
+                            print(f"{name}: spill off under the pool "
+                                  f"raised ExceededMemoryLimit ({e})")
+                        else:
+                            raise CheckFailed(f"{name}: spill off under the "
+                                              "pool did not raise")
+                        no_spill_left(f"{name} spill off")
+                    # timed: GRACE (the default path) under both engines,
+                    # the other units under hash: the first entry, and
+                    # the others where a run takes under WARM_LIMIT_S (the
+                    # script's time limit)
+                    warm, dev = None, {}
+                    if unit == "grace_default" or eng == "hash" and (
+                            label == entries[0][0] or first < WARM_LIMIT_S):
+                        again, warm = warm_runs(torch, r, sql)
+                        frames_agree(again, out, keys, f"{name} rerun")
+                        dev = device_profile(torch, lambda: r.run(sql))
+                        no_spill_left(f"{name} warm")
+                    summary.append({
+                        "unit": unit, "run": label, "engine": eng,
+                        "rows": len(out),
+                        "warm_ms": None if warm is None else warm * 1e3,
+                        "first_ms": first * 1e3, "launches": launches,
+                        "busy": (None if warm is None
+                                 else dev["device_ms"] / (warm * 1e3)),
+                        "stats": stats, **dev})
+                    timing = ("" if warm is None else
+                              f"; warm median of 3 {warm * 1e3:.1f} ms; "
+                              f"device time of one more run "
+                              f"{dev['device_ms']:.2f} ms, busy "
+                              f"{dev['device_ms'] / warm / 10:.1f} %")
+                    print(f"{name} SF {SF}: {len(out)} rows, {how} to the "
+                          f"base run{'; equal to the oracle' if q in oracles else ''}"
+                          f"; first run {first * 1e3:.1f} ms{timing}; "
+                          f"launches {json.dumps(launches)}; "
+                          f"{json.dumps(stats)}")
+                    if unit == "grace_default":
+                        # the base run (spill off) warmed its runner
+                        _, off_warm = warm_runs(torch, base_runner, sql)
+                        summary[-1]["spill_off_warm_ms"] = off_warm * 1e3
+                        print(f"{name} SF {SF}: GRACE {warm * 1e3:.1f} ms "
+                              f"against {off_warm * 1e3:.1f} ms in memory "
+                              "(spill off), warm medians of 3")
+            unit_s[unit] = time.perf_counter() - t_unit
+            print(f"memory {unit}: {unit_s[unit]:.1f} s at SF {SF}")
+        # which chains the JAX package's rule collapses depends on the
+        # plan's shape at this scale (a right-deep chain stays binary)
+        print(f"memory multiway: EXPLAIN shows a MultiwayJoin for "
+              f"{sorted(collapsed)}")
+        require("mw_fanout" in collapsed and len(collapsed) > 1,
+                "memory multiway: no TPC-H chain or MW_FANOUT collapsed")
+        require(ladder, "memory mw_fanout hash: join_probe did not launch")
+        top = max(ladder)
+        print(f"memory mw_fanout hash: join_probe launched at F = "
+              f"{sorted(set(ladder))}")
+        rng = np.random.default_rng(20261018)
+        ji, jp = join_probe_case(torch, rng, 4096, 4096 // top, (top,))
+        errs["join_insert"] = max(errs["join_insert"], ji)
+        errs["join_probe"] = max(errs["join_probe"], jp)
+
+        done = check_recorded(torch, largest, errs)
+        del largest
+        print(f"memory hash SF {SF}: each kernel's largest input of the "
+              f"first runs holds its contract: {json.dumps(done)}")
+
+        t_small = time.perf_counter()
+        small = tpch_catalog(SMALL_SF)
+        hows = {}
+        # the group tables' base capacity (agg_capacity) does not shrink
+        # with the scale factor: at SF 0.01 the pool is 4 MiB
+        for unit, entries in memory_units(1 << 22).items():
+            for label, q, cfg, _ in entries:
+                sql = memory_sql(q, SMALL_SF)
+                for eng in ENGINES:
+                    on_gpu = runner(cfg, eng, small).run(sql)
+                    on_cpu = runner(cfg, eng, small, "cpu").run(sql)
+                    hows[f"{unit} {label} {eng}"] = frames_agree(
+                        on_gpu, on_cpu, ORDER_KEYS.get(q),
+                        f"memory {unit} {label} {eng} SF {SMALL_SF} card "
+                        "vs CPU")
+        no_spill_left("memory SF 0.01")
+        unit_s[f"SF {SMALL_SF}"] = time.perf_counter() - t_small
+        print(f"memory SF {SMALL_SF}: card against CPU for {len(hows)} runs "
+              f"in {unit_s[f'SF {SMALL_SF}']:.1f} s: {json.dumps(hows)}")
+    finally:
+        hk._join_probe_cuda = real_probe
+        shutil.rmtree(spill_dir)
+    print(f"memory: phase took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"memory": summary, "seconds": unit_s}))
+    return hash_launches
+
+
+def check_memory_unit(unit, label, eng, runner, sql, stats, launches,
+                      collapsed):
+    """What each unit must show beyond its frames; a multiway run whose
+    EXPLAIN shows a MultiwayJoin adds its label to `collapsed`."""
+    name = f"memory {unit} {label} {eng}"
+    if unit == "grace_default":
+        require(stats["spill.partitions"] > 0, f"{name}: no GRACE")
+    elif unit == "pool_spill":
+        require(stats["spill.partitions"] > 0, f"{name}: did not spill")
+        require(stats["spill.repartitions"] > 0,
+                f"{name}: no partition repartitioned")
+    elif unit == "radix" and label.endswith("forced_spill"):
+        require(stats["radix.partitions_spilled"] > 0,
+                f"{name}: no partition spilled")
+    elif unit == "multiway":
+        if "MultiwayJoin" in runner.explain(sql):
+            collapsed.add(label)
+        if label == "mw_fanout" and eng == "hash":
+            require(launches.get("join_probe", 0) > 0,
+                    f"{name}: join_probe did not launch")
+            require(stats["multiway.cascade_fallbacks"] == 0,
+                    f"{name}: fell back to the cascade")
+        if label == "mw_fanout" and eng == "auto":
+            require(stats["multiway.cascade_fallbacks"] > 0,
+                    f"{name}: no cascade fallback")
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: TPC-DS
 
 # the output columns of each TPC-DS query's ORDER BY (None: one row, or an
@@ -2447,6 +2844,7 @@ def phase_tpcds(torch, errs):
             torch.cuda.synchronize()
             first = time.perf_counter() - t1
             launches = {k: v for k, v in launch_counts().items() if v}
+            grace = runners[eng].last_stats.get("spill.partitions", 0) > 0
             if eng == "hash":
                 for k, v in launches.items():
                     hash_launches[k] = hash_launches.get(k, 0) + v
@@ -2469,9 +2867,10 @@ def phase_tpcds(torch, errs):
             summary.append({"query": q, "engine": eng, "rows": len(out),
                             "warm_ms": sec * 1e3, "first_ms": first * 1e3,
                             "store_sales_rows_per_s": n_ss / sec,
-                            "launches": launches, **dev})
-            print(f"tpcds {q} {eng} SF {SF}: {len(out)} rows; warm median of "
-                  f"3 {sec * 1e3:.1f} ms, {n_ss / sec:.4g} store_sales "
+                            "grace": grace, "launches": launches, **dev})
+            print(f"tpcds {q} {eng} SF {SF}: grace {grace}; {len(out)} rows; "
+                  f"warm median of 3 {sec * 1e3:.1f} ms, {n_ss / sec:.4g} "
+                  f"store_sales "
                   f"rows/s; first run {first * 1e3:.1f} ms; launches "
                   f"{json.dumps(launches)}; device time of one run "
                   f"{dev['device_ms']:.2f} ms ({dev['device_ms'] / sec / 10:.1f}"
@@ -3102,6 +3501,7 @@ def main() -> int:
     timed = phase_tpch22(torch, cat, errs)
     phase_surface(torch, cat, errs)
     st_launches = phase_structural(torch, cat, errs)
+    mem_launches = phase_memory(torch, cat, errs)
     del cat
     ds_launches, ds_timed = phase_tpcds(torch, errs)
     rows = phase_timing(torch, inputs, timed, ds_timed, errs)
@@ -3112,6 +3512,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "tpcds_launches": ds_launches.get(name, 0),
             "structural_launches": st_launches.get(name, 0),
+            "memory_launches": mem_launches.get(name, 0),
             "max_abs_err": errs[name],
             "ms": r["ms_warm"] if r["ms_cold"] is None else r["ms_cold"],
             "cold": r["ms_cold"] is not None, "ms_warm": r["ms_warm"],

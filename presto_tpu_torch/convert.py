@@ -39,10 +39,15 @@ def batch_from_arrays(names: Sequence[str], types: Sequence[Union[Type, str]],
                       validity: Sequence[Optional[np.ndarray]],
                       hi: Sequence[Optional[np.ndarray]], live: np.ndarray,
                       dicts: Mapping[str, object],
-                      device: Union[str, torch.device]) -> Batch:
-    """A port Batch on `device` from per-column numpy planes."""
-    cols = [Column(_tensor(v, device), _tensor(va, device), _tensor(h, device))
-            for v, va, h in zip(values, validity, hi)]
+                      device: Union[str, torch.device],
+                      structural: Optional[Sequence[Optional[tuple]]] = None
+                      ) -> Batch:
+    """A port Batch on `device` from per-column numpy planes; a structural
+    column's (sizes, evalid, keys) planes, where given, in `structural`."""
+    structural = structural or [None] * len(values)
+    cols = [Column(_tensor(v, device), _tensor(va, device), _tensor(h, device),
+                   *(_tensor(p, device) for p in (st or (None,) * 3)))
+            for v, va, h, st in zip(values, validity, hi, structural)]
     return Batch(names, [_type(t) for t in types], cols, _tensor(live, device),
                  {k: _dictionary(d) for k, d in dicts.items()})
 

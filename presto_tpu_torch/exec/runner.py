@@ -1,8 +1,9 @@
 """LocalRunner — single-process query runner.
 
-Analog of the reference's LocalQueryRunner: parse → plan → optimize →
-execute in-process. Runs on the GPU unless the caller passes a device:
-`device=None` means CUDA and raises when CUDA is absent.
+Analog of the reference's LocalQueryRunner: parse → plan → optimize
+(with the session's multiway join collapse) → execute in-process. Runs
+on the GPU unless the caller passes a device: `device=None` means CUDA
+and raises when CUDA is absent.
 
 Statements other than queries (CREATE TABLE [AS], INSERT, DROP TABLE,
 CREATE/DROP VIEW, DELETE, TRUNCATE) run engine-side before any planning,
@@ -26,6 +27,7 @@ from presto_tpu_torch.exec.runtime import (
     run_plan,
 )
 from presto_tpu_torch.plan.builder import plan_query
+from presto_tpu_torch.plan.multiway import apply_join_mode
 from presto_tpu_torch.plan.nodes import QueryPlan, plan_to_string
 from presto_tpu_torch.plan.optimizer import optimize
 from presto_tpu_torch.sql import ast
@@ -127,9 +129,17 @@ class LocalRunner:
             raise NotImplementedError(
                 f"statement {type(stmt).__name__} is not supported by "
                 "presto_tpu_torch yet")
-        qp = optimize(plan_query(stmt, self.catalog), self.catalog)
+        qp = self._optimize(plan_query(stmt, self.catalog))
         if sql is not None and not qp.scalar_subqueries and qp.cacheable:
             self._plan_cache[sql] = qp
+        return qp
+
+    def _optimize(self, qp: QueryPlan) -> QueryPlan:
+        """optimize() and the session's multiway collapse, which runs
+        when the plan is installed because its verdict depends on the
+        session's join_mode."""
+        qp = optimize(qp, self.catalog)
+        apply_join_mode(qp, self.catalog, self.config)
         return qp
 
     def plan(self, sql: str) -> QueryPlan:

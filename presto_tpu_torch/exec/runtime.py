@@ -28,17 +28,26 @@ NestedLoopJoin (cross and non-equi inner joins), Unnest [WITH
 ORDINALITY], SetOp (UNION [ALL], INTERSECT [ALL], EXCEPT [ALL]; with it
 GROUPING SETS, ROLLUP and CUBE, which the planner lowers to UNION ALL),
 Window, Sort and TopN, Limit, Output, and uncorrelated scalar subqueries
-bound as constants. ARRAY and MAP columns ride through every operator
-with their planes (batch.Column). Anything else raises
-NotImplementedError naming it. Statements other than queries run in
-exec/runner.py.
-Not yet here: GRACE/spilled aggregation, radix partitioning, adaptive
-execution, history-based optimization and multiway joins.
+bound as constants, and MultiwayJoin (plan/multiway.py's N-ary join).
+ARRAY and MAP columns ride through every operator with their planes
+(batch.Column). Anything else raises NotImplementedError naming it.
+Statements other than queries run in exec/runner.py.
+
+Memory-bounded execution follows the JAX package's rules: operators
+account their resident state in the context's memory pool (memory.py),
+and past its revoke threshold an aggregation or a join build spills to
+host files (spiller.py). A keyed aggregation whose presize passes
+`agg_cap_ceiling` goes GRACE: its raw input hash-partitions to spill and
+each partition merges on its own, splitting again by the next hash bits
+when it still outgrows the ceiling. `radix_partitions` splits joins and
+high-NDV group-bys by the top hash bits (ops/radix.py). Not yet here:
+adaptive execution and history-based optimization.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from types import SimpleNamespace
 from typing import (
     Callable,
@@ -80,6 +89,11 @@ from presto_tpu_torch.expr.ir import (
     substitute_params,
 )
 from presto_tpu_torch.expr.structural import StructVal
+from presto_tpu_torch.memory import (
+    LocalMemoryContext,
+    MemoryPool,
+    batch_device_bytes,
+)
 from presto_tpu_torch.ops.grouping import (
     KeyCol,
     StateCol,
@@ -87,6 +101,7 @@ from presto_tpu_torch.ops.grouping import (
     grouped_merge,
 )
 from presto_tpu_torch.ops.join import (
+    MwSpec,
     align_probe_strings,
     build_side,
     gather_join_output,
@@ -95,9 +110,17 @@ from presto_tpu_torch.ops.join import (
     hash_probe_expand,
     hash_probe_unique,
     join_compare_dtypes,
+    multiway_counts,
+    multiway_expand,
+    multiway_probe_unique,
     probe_counts,
     probe_expand,
     probe_unique,
+)
+from presto_tpu_torch.ops.radix import (
+    radix_bits,
+    radix_perm,
+    radix_window_perm,
 )
 from presto_tpu_torch.ops.sort import (
     SortKey,
@@ -121,6 +144,7 @@ from presto_tpu_torch.plan.nodes import (
     HostProject,
     IndexJoin,
     Limit,
+    MultiwayJoin,
     NestedLoopJoin,
     OneRow,
     Output,
@@ -133,6 +157,11 @@ from presto_tpu_torch.plan.nodes import (
     TableScan,
     Unnest,
     Window,
+)
+from presto_tpu_torch.spiller import (
+    SpillFile,
+    SpillLimitExceeded,
+    SpillManager,
 )
 from presto_tpu_torch.types import (
     BIGINT,
@@ -150,15 +179,43 @@ class ExecConfig:
 
     batch_rows: int = 1 << 17  # rows per scan batch
     agg_capacity: int = 1 << 12  # initial group-table capacity
-    # CBO presizing stops here; a larger table grows by overflow replay
+    # Past this group-table capacity a keyed aggregation goes GRACE: its
+    # raw input hash-partitions to spill and each partition merges at a
+    # small capacity (with spill disabled the table grows by replay)
     agg_cap_ceiling: int = 1 << 17
     # coalesce sparse join output batches before downstream operators
     # (MergingPageOutput analog; see _merging_output)
     merge_sparse_output: bool = True
     max_growth_retries: int = 24
+    # memory pool and spill (memory.py, spiller.py; None = unlimited)
+    memory_pool_bytes: Optional[int] = None
+    spill_enabled: bool = True
+    spill_dir: Optional[str] = None
+    spill_partitions: int = 8
+    # how many times a spill partition may split by the next hash bits,
+    # mid-build past its byte budget or at replay (recursive
+    # repartitioning); past it the query fails with SpillLimitExceeded
+    spill_max_depth: int = 4
+    # the spill directory's byte budget (None = unlimited)
+    spill_dir_budget_bytes: Optional[int] = None
+    memory_revoking_threshold: float = 0.9
+    memory_revoking_target: float = 0.5
+    # radix partitioning of joins and keyed aggregations (ops/radix.py):
+    # a power of two; 0/1 = off
+    radix_partitions: int = 0
+    # hybrid spill: a radix partition whose build side (or group table)
+    # passes this many bytes goes to host files and is processed after
+    # the resident ones; also the replay budget of a spilled join
+    # partition. None = never
+    join_spill_budget_bytes: Optional[int] = None
     # "auto": the CBO (plan/stats.choose_breaker_engine) picks per
     # breaker; "sort" / "hash" force one engine everywhere
     breaker_engine: str = "auto"
+    # multiway join collapse (plan/multiway.py): "auto" lets the CBO
+    # (plan/stats.choose_join_mode) decide, "multiway" forces every
+    # eligible chain, "binary" runs the pass and always declines, "off"
+    # skips it
+    join_mode: str = "auto"
 
 
 class ExecContext:
@@ -168,9 +225,37 @@ class ExecContext:
         self.config = config
         self.device = device
         self.stats: Dict[str, float] = {}
+        self.memory_pool = MemoryPool(
+            config.memory_pool_bytes,
+            revoke_threshold=config.memory_revoking_threshold,
+            revoke_target=config.memory_revoking_target)
+        self.spill_manager = SpillManager(config.spill_dir,
+                                          config.spill_dir_budget_bytes)
+        # every spiller and spill file an operator opens, so teardown can
+        # close and unlink them even when the operator died mid-spill
+        self.spill_resources: List = []
 
     def bump(self, key: str, delta: int = 1) -> None:
         self.stats[key] = self.stats.get(key, 0) + delta
+
+    def track_spill(self, resource) -> None:
+        self.spill_resources.append(resource)
+
+    def cleanup_spill(self) -> None:
+        """Leak guard: close (and unlink) every spill resource this context
+        opened. Idempotent, and safe after the operators' own closes."""
+        for r in self.spill_resources:
+            r.close()
+        self.spill_resources = []
+
+    def should_spill(self, projected_delta_bytes: int) -> bool:
+        """Would reserving this many more bytes cross the revoke
+        threshold?"""
+        pool = self.memory_pool
+        if pool.limit is None or not self.config.spill_enabled:
+            return False
+        return (pool.reserved + projected_delta_bytes
+                > pool.limit * pool.revoke_threshold)
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +346,9 @@ def _project(b: Batch, compiled) -> Batch:
 
 
 # operators whose output batches can be sparse: their consumers see them
-# coalesced (MergingPageOutput analog)
-_SPARSE_OUTPUT = (HashJoin, IndexJoin, NestedLoopJoin)
+# coalesced (MergingPageOutput analog), the JAX package's set
+_SPARSE_OUTPUT = (HashJoin, MultiwayJoin, SemiJoin, IndexJoin,
+                  NestedLoopJoin)
 
 
 def execute_node(node: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
@@ -345,6 +431,9 @@ def _execute_base(base: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
         return
     if isinstance(base, HashJoin):
         yield from _execute_join(base, ctx)
+        return
+    if isinstance(base, MultiwayJoin):
+        yield from _execute_multiway_join(base, ctx)
         return
     if isinstance(base, IndexJoin):
         yield from _execute_index_join(base, ctx)
@@ -715,8 +804,11 @@ def _key_domain(b: Batch, k: str, t: Type) -> Optional[int]:
 
 
 def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
-    """The merge step of one Aggregate node for one breaker engine:
-    merge_step(acc, b, cap) → (acc', n_groups)."""
+    """The merge steps of one Aggregate node for one breaker engine:
+    merge_step(acc, b, cap, prechained=False) → (acc', n_groups) folds a
+    raw input batch (through the node's child chain unless `prechained`)
+    into the accumulator; acc_merge_step(acc, b, cap) folds a batch of
+    state columns (a spilled accumulator) into it."""
     _, chain0 = collapse_chain(node.child)
     chain = chain0 or (lambda b: b)
     in_types = dict(node.child.output)
@@ -743,13 +835,7 @@ def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
                   for name, op, _ in layout]
         return keys, states
 
-    def merge_step(acc: Optional[Batch], b: Batch, cap: int):
-        b = chain(b)
-        if acc is not None:
-            # keys from different sources may be coded against different
-            # dictionaries; group equality is string equality
-            acc, b = _unify_batch_dicts([acc, b])
-        kin, sin = in_to_states(b)
+    def merge(acc: Optional[Batch], b: Batch, kin, sin, cap: int):
         live = b.live
         if acc is not None:
             ka, sa = acc_to_states(acc)
@@ -766,13 +852,40 @@ def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
             live = torch.cat([acc.live, live])
         kout, sout, out_live, n_groups = grouped_merge(kin, sin, live, cap,
                                                        engine=engine)
+        return kout, _renorm_limbs(list(sout), lpairs), out_live, n_groups
+
+    def merge_step(acc: Optional[Batch], b: Batch, cap: int,
+                   prechained: bool = False):
+        if not prechained:
+            b = chain(b)
+        if acc is not None:
+            # keys from different sources may be coded against different
+            # dictionaries; group equality is string equality
+            acc, b = _unify_batch_dicts([acc, b])
+        kin, sin = in_to_states(b)
+        kout, sout, out_live, n_groups = merge(acc, b, kin, sin, cap)
         out = _acc_batch(b, key_syms, key_types, layout, state_types, kout,
-                         _renorm_limbs(list(sout), lpairs), out_live)
+                         sout, out_live)
         return out, n_groups
+
+    def acc_merge_step(acc: Optional[Batch], b: Batch, cap: int):
+        if acc is not None:
+            acc, b = _unify_batch_dicts([acc, b])
+        kin, sin = acc_to_states(b)
+        kout, sout, out_live, n_groups = merge(acc, b, kin, sin, cap)
+        names = list(key_syms) + [name for name, _, _ in layout]
+        cols = ([Column(k.values, k.validity) for k in kout]
+                + [Column(st.values,
+                          st.validity if st.op != "count_add" else None)
+                   for st in sout])
+        return Batch(names, list(key_types) + list(state_types), cols,
+                     out_live, {k: v for k, v in b.dicts.items()
+                                if k in names}), n_groups
 
     return SimpleNamespace(layout=layout, key_syms=key_syms,
                            key_types=key_types, in_types=in_types,
-                           merge_step=merge_step)
+                           chain=chain, merge_step=merge_step,
+                           acc_merge_step=acc_merge_step)
 
 
 def _acc_batch(src: Batch, key_syms, key_types, layout, state_types, kout,
@@ -792,23 +905,31 @@ def _acc_batch(src: Batch, key_syms, key_types, layout, state_types, kout,
                  dicts)
 
 
-def _agg_presize(node: Aggregate, ctx: ExecContext) -> int:
-    """CBO group-table presizing from derived NDV stats, capped at
-    agg_cap_ceiling (past it the table grows by overflow replay)."""
+def _agg_presize(node: Aggregate, ctx: ExecContext):
+    """CBO group-table presizing from derived NDV stats and the GRACE
+    decision, the JAX package's rule. Returns (cap, ceiling, can_spill,
+    grace_from_start): a keyed aggregation whose presize passes the
+    ceiling goes GRACE from the start when spill is on, and its table
+    starts at the ceiling."""
+    key_syms = node.group_keys
     cap = ctx.config.agg_capacity
-    if not node.group_keys:
-        return cap
-    from presto_tpu_torch.plan.stats import derive as _derive_stats
+    can_spill = bool(key_syms) and ctx.config.spill_enabled
+    ceiling = max(ctx.config.agg_cap_ceiling, ctx.config.agg_capacity)
+    if key_syms:
+        from presto_tpu_torch.plan.stats import derive as _derive_stats
 
-    try:
-        st = _derive_stats(node, ctx.catalog)
-    except Exception:  # noqa: BLE001 — no estimate: start at agg_capacity
-        st = None
-    rows = st.rows if (st is not None and st.rows) else None
-    if rows:
-        want = round_up_capacity(int(min(rows * 1.25, float(1 << 23))))
-        cap = max(cap, want)
-    return min(cap, max(ctx.config.agg_cap_ceiling, ctx.config.agg_capacity))
+        try:
+            st = _derive_stats(node, ctx.catalog)
+        except Exception:  # noqa: BLE001 — no estimate: start at agg_capacity
+            st = None
+        rows = st.rows if (st is not None and st.rows) else None
+        if rows:
+            want = round_up_capacity(int(min(rows * 1.25, float(1 << 23))))
+            cap = max(cap, want)
+    grace_from_start = can_spill and cap > ceiling
+    if can_spill:
+        cap = min(cap, ceiling)
+    return cap, ceiling, can_spill, grace_from_start
 
 
 def _execute_aggregate(node: Aggregate, ctx: ExecContext) -> Iterator[Batch]:
@@ -827,24 +948,392 @@ def _execute_aggregate(node: Aggregate, ctx: ExecContext) -> Iterator[Batch]:
     in_stream, _ = _fused_child(node.child, ctx)
     engine = _breaker_engine_choice(node, ctx)
     steps = _agg_steps(node, engine)
-    cap = _agg_presize(node, ctx)
-    acc: Optional[Batch] = None
-    for b in in_stream:
-        for _ in range(ctx.config.max_growth_retries):
-            out, ng = steps.merge_step(acc, b, cap)
-            if not node.group_keys:
-                break  # a global aggregate has one group
-            n = int(ng)
-            if n <= cap:
-                break
-            # capacity overflow: replay this merge from the unchanged
-            # accumulator at a capacity that fits
-            cap = round_up_capacity(n)
-            ctx.bump("agg.replay_waves")
-        else:
-            raise RuntimeError("aggregate capacity growth exceeded retries")
-        acc = out
-    yield _finalize_aggregate(node, acc, steps, ctx.device)
+    cap, ceiling, can_spill, grace_from_start = _agg_presize(node, ctx)
+    # radix pays only for a large group table (a presize past the base
+    # capacity); a spill budget engages it regardless
+    if (node.group_keys and ctx.config.radix_partitions > 1
+            and (ctx.config.join_spill_budget_bytes is not None
+                 or cap > ctx.config.agg_capacity)):
+        yield from _radix_aggregate(node, ctx, steps, in_stream, cap)
+        return
+    agg = _SpillableAggregation(node, ctx, steps, cap, ceiling, can_spill)
+    yield from agg.run(in_stream, grace_from_start)
+
+
+class _RevokeFlag:
+    """A pool revoker that only raises a flag, which its operator honours
+    at its next batch boundary (spilling inside reserve() would re-enter
+    the ledger mid-update). Registered from construction, when `enabled`,
+    until close()."""
+
+    def __init__(self, pool: MemoryPool, enabled: bool):
+        self.pool, self.enabled, self.raised = pool, enabled, False
+        if enabled:
+            pool.add_revoker(self)
+
+    def __call__(self, _need: int) -> int:
+        self.raised = True
+        return 0
+
+    def take(self) -> bool:
+        """Whether a request came since the last take; clears it."""
+        raised, self.raised = self.raised, False
+        return raised
+
+    def close(self) -> None:
+        if self.enabled:
+            self.pool.remove_revoker(self)
+            self.enabled = False
+
+
+def _grown_merge(ctx: ExecContext, step, acc: Optional[Batch], b: Batch,
+                 cap: int, keyed: bool = True,
+                 limit: Optional[Callable[[int], None]] = None
+                 ) -> Tuple[Batch, int]:
+    """(merged, capacity): `b` merged into `acc` at `cap`; a merge whose
+    groups overflow the table runs again from the unchanged `acc` at the
+    capacity that fits. `limit(capacity)` sees each growth first and may
+    raise."""
+    for _ in range(ctx.config.max_growth_retries):
+        out, ng = step(acc, b, cap)
+        if not keyed:
+            return out, cap  # a global aggregate has one group
+        n = int(ng)
+        if n <= cap:
+            return out, cap
+        want = round_up_capacity(n)
+        if limit is not None:
+            limit(want)
+        cap = want
+        ctx.bump("agg.replay_waves")
+    raise RuntimeError("aggregate capacity growth exceeded retries")
+
+
+class _GraceOverflow(Exception):
+    """Group-table growth crossed the grace ceiling: the aggregation
+    switches to hash-partitioned (GRACE) mode. Carries the input batch
+    that was not merged."""
+
+    def __init__(self, batch: Batch):
+        super().__init__("aggregate group table crossed the grace ceiling")
+        self.batch = batch
+
+
+class _SpillableAggregation:
+    """One aggregation over a stream under the memory pool
+    (SpillableHashAggregationBuilder analog, the JAX package's protocol):
+
+    - the accumulator's bytes are reserved in the pool; past the revoke
+      threshold, or on a revoke request, it spills as state pages
+      partitioned by hash(keys) and the merge starts over empty;
+    - growth past the grace ceiling (or a presize past it) hands the
+      input to GRACE: the chained raw batches hash-partition to spill;
+    - once spilled, each partition replays on its own (raw rows, then
+      state pages) at agg_capacity, and a partition that still outgrows
+      the ceiling splits by the next hash bits, down to spill_max_depth,
+      where the query fails with SpillLimitExceeded.
+
+    Merges are synchronous: a batch that overflows the table is merged
+    again from the unchanged accumulator at a capacity that fits."""
+
+    def __init__(self, node: Aggregate, ctx: ExecContext, steps, cap: int,
+                 ceiling: int, can_spill: bool):
+        self.node, self.ctx, self.steps = node, ctx, steps
+        self.cap, self.ceiling, self.can_spill = cap, ceiling, can_spill
+        self.keyed = bool(node.group_keys)
+        self.acc: Optional[Batch] = None
+        self.spiller = None  # spilled accumulators (state pages)
+        self.raw_spiller = None  # GRACE: the chained raw input
+        self.rev: Optional[_RevokeFlag] = None
+        self.mctx = LocalMemoryContext(ctx.memory_pool, "aggregate")
+        self.raw_step = (lambda acc, b, c:
+                         steps.merge_step(acc, b, c, prechained=True))
+
+    def _new_spiller(self, tag: str):
+        ctx = self.ctx
+        sp = ctx.spill_manager.partitioning_spiller(
+            self.steps.key_syms, ctx.config.spill_partitions, tag,
+            on_grow=lambda _child, _p: ctx.bump("spill.repartitions"))
+        ctx.track_spill(sp)
+        return sp
+
+    def _raw(self):
+        if self.raw_spiller is None:
+            self.raw_spiller = self._new_spiller("agg-raw")
+        return self.raw_spiller
+
+    def _spill_acc(self) -> int:
+        """Partition-spill the accumulator as state pages; returns the
+        bytes it freed."""
+        if self.acc is None:
+            return 0
+        if self.spiller is None:
+            self.spiller = self._new_spiller("agg")
+        self.spiller.spill(self.acc)
+        freed = self.mctx.bytes
+        self.acc = None
+        self.mctx.set_bytes(0)
+        return freed
+
+    def _merge(self, b: Batch, step, mode: str) -> Batch:
+        """`b` merged into the accumulator at a capacity that fits. Growth
+        past the ceiling raises _GraceOverflow in mode "grace" and
+        SpillLimitExceeded in mode "fail"; mode "grow" grows on."""
+        def limit(want: int) -> None:
+            if mode == "grow" or want <= self.ceiling:
+                return
+            if mode == "fail":
+                raise SpillLimitExceeded(
+                    "aggregate spill partition exceeds the grace ceiling "
+                    "at max recursion depth "
+                    f"{max(0, self.ctx.config.spill_max_depth)} (group keys "
+                    "share too many hash bits to split further)")
+            raise _GraceOverflow(b)
+
+        out, self.cap = _grown_merge(self.ctx, step, self.acc, b, self.cap,
+                                     self.keyed, limit)
+        return out
+
+    def _absorb(self, stream: Iterator[Batch], step, allow_spill: bool,
+                on_ceiling: Optional[str] = None) -> None:
+        """Merge the stream into the accumulator, accounting the
+        accumulator and the batch just merged in the pool."""
+        mode = on_ceiling or ("grace" if allow_spill else "grow")
+        if not self.can_spill:
+            mode = "grow"
+        ctx = self.ctx
+        for b in stream:
+            self.acc = self._merge(b, step, mode)
+            out_bytes = batch_device_bytes(self.acc)
+            if self.keyed:
+                out_bytes += batch_device_bytes(b)
+            if allow_spill and self.can_spill and (
+                    self.rev.raised
+                    or ctx.should_spill(out_bytes - self.mctx.bytes)):
+                was_revoke = self.rev.take()
+                self._spill_acc()
+                if was_revoke:
+                    ctx.bump("spill.revocations")
+            else:
+                self.mctx.set_bytes(out_bytes)
+
+    def _grace_ingest(self, stream: Iterator[Batch]) -> None:
+        """Hash-partition the chained input straight to spill: no device
+        merge until the per-partition phase."""
+        raw, chain = self._raw(), self.steps.chain
+        for b in stream:
+            raw.spill(chain(b))
+
+    def run(self, in_stream: Iterator[Batch],
+            grace_from_start: bool) -> Iterator[Batch]:
+        ctx, node, steps = self.ctx, self.node, self.steps
+        self.rev = _RevokeFlag(ctx.memory_pool, self.can_spill)
+        try:
+            if grace_from_start:
+                self._grace_ingest(in_stream)
+            else:
+                try:
+                    self._absorb(in_stream, steps.merge_step,
+                                 allow_spill=True)
+                except _GraceOverflow as ov:
+                    # the table outgrew the ceiling mid-stream: the
+                    # accumulator spills as state pages, the unmerged
+                    # batch and the rest of the input as raw rows
+                    self._spill_acc()
+                    self._raw().spill(steps.chain(ov.batch))
+                    self._grace_ingest(in_stream)
+            if self.spiller is None and self.raw_spiller is None:
+                yield _finalize_aggregate(node, self.acc, steps, ctx.device)
+                return
+            # spilled: finalize partition by partition
+            self._spill_acc()
+            self.rev.close()
+            spiller, raw = self.spiller, self.raw_spiller
+            for p in range((raw or spiller).n_partitions):
+                yield from self._finalize_leaf(raw, spiller, p, 0)
+            _record_spill_done(ctx, [raw, spiller])
+        finally:
+            self.rev.close()
+            self.mctx.set_bytes(0)
+            for sp in (self.spiller, self.raw_spiller):
+                if sp is not None:
+                    sp.close()
+
+    def _finalize_leaf(self, rsp, asp, p: int, sdepth: int
+                       ) -> Iterator[Batch]:
+        """Replay partition p of the raw and state-page spillers (which
+        split in lockstep) and finalize it; a replay that outgrows the
+        ceiling splits the partition by the next hash bits and recurses."""
+        ctx, dev = self.ctx, self.ctx.device
+        self.acc = None
+        # each partition holds ~1/P of the groups: start small again
+        self.cap = ctx.config.agg_capacity
+        mode = ("grace" if sdepth < max(0, ctx.config.spill_max_depth)
+                else "fail")
+        try:
+            rows = ctx.config.batch_rows
+            if rsp is not None:
+                self._absorb(_coalesced(rsp.read_partition(p, dev), rows),
+                             self.raw_step, allow_spill=False,
+                             on_ceiling=mode)
+            if asp is not None:
+                self._absorb(_coalesced(asp.read_partition(p, dev), rows),
+                             self.steps.acc_merge_step, allow_spill=False,
+                             on_ceiling=mode)
+        except _GraceOverflow:
+            # the partition's files are intact: drop the partial merge,
+            # split both trees by the next hash bits, finalize the children
+            self.acc = None
+            self.mctx.set_bytes(0)
+            sub_r = rsp.grow_partition(p) if rsp is not None else None
+            sub_a = (asp.grow_partition(
+                p, fanout=(sub_r.n_partitions if sub_r is not None
+                           else None))
+                if asp is not None else None)
+            for q in range((sub_r or sub_a).n_partitions):
+                yield from self._finalize_leaf(sub_r, sub_a, q, sdepth + 1)
+            return
+        acc, self.acc = self.acc, None
+        if acc is None:
+            return
+        ctx.bump("spill.partitions")
+        yield _finalize_aggregate(self.node, acc, self.steps, ctx.device)
+        self.mctx.set_bytes(0)
+
+
+def _radix_aggregate(node: Aggregate, ctx: ExecContext, steps,
+                     in_stream: Iterator[Batch], cap: int
+                     ) -> Iterator[Batch]:
+    """Radix-partitioned group-by: each chained input batch splits by the
+    top hash bits of its keys and each partition merges into its own
+    small accumulator. A partition whose accumulator passes
+    join_spill_budget_bytes (or the largest one, on a revoke request)
+    hybrid-spills: its state pages and all its later raw rows go to host
+    files and replay, one partition at a time, at the end."""
+    P = ctx.config.radix_partitions
+    radix_bits(P)
+    budget = ctx.config.join_spill_budget_bytes
+    key_syms = steps.key_syms
+    # the presize applies per partition: each holds ~1/P of the groups
+    start_cap = max(ctx.config.agg_capacity,
+                    round_up_capacity(max(cap // P, 1)))
+    caps = [start_cap] * P
+    accs: List[Optional[Batch]] = [None] * P
+    afiles: Dict[int, SpillFile] = {}  # spilled accumulator state pages
+    rfiles: Dict[int, SpillFile] = {}  # spilled raw (chained) input
+    ctx.bump("radix.agg_engaged")
+
+    def raw_step(acc, b, c):
+        return steps.merge_step(acc, b, c, prechained=True)
+
+    def merge_into(p: int, sub: Batch, step) -> None:
+        accs[p], caps[p] = _grown_merge(ctx, step, accs[p], sub, caps[p])
+
+    def spill_partition(p: int) -> None:
+        af = ctx.spill_manager.spill_file(f"radix-agg-acc-p{p}")
+        ctx.track_spill(af)
+        if accs[p] is not None:
+            af.append(accs[p])
+        afiles[p] = af
+        rfiles[p] = ctx.spill_manager.spill_file(f"radix-agg-raw-p{p}")
+        ctx.track_spill(rfiles[p])
+        accs[p] = None
+        caps[p] = start_cap
+        ctx.bump("radix.partitions_spilled")
+
+    rev = _RevokeFlag(ctx.memory_pool, ctx.config.spill_enabled)
+    try:
+        for raw_b in in_stream:
+            rid = _radix_tag(raw_b, P, key_syms)
+            b = steps.chain(_untag_batch(raw_b))
+            subs = ([(rid, b)] if rid is not None
+                    else _radix_split(b, key_syms, P))
+            for p, sub in subs:
+                if p in rfiles:
+                    rfiles[p].append(sub)
+                    continue
+                merge_into(p, sub, raw_step)
+                if (budget is not None
+                        and batch_device_bytes(accs[p]) > budget):
+                    spill_partition(p)
+            if rev.take():
+                # the pool asked for memory back: spill the largest
+                # resident partition
+                resident = [(pp, batch_device_bytes(accs[pp]))
+                            for pp in range(P)
+                            if accs[pp] is not None and pp not in rfiles]
+                if resident:
+                    pp, _ = max(resident, key=lambda t: t[1])
+                    spill_partition(pp)
+                    ctx.bump("spill.revocations")
+        for p in range(P):
+            if p in rfiles or accs[p] is None:
+                continue
+            yield _finalize_aggregate(node, accs[p], steps, ctx.device)
+            accs[p] = None
+        # hybrid-spilled partitions, one resident at a time
+        for p in sorted(rfiles):
+            accs[p] = None
+            caps[p] = start_cap
+            rows = ctx.config.batch_rows
+            for sub in _coalesced(rfiles[p].read(ctx.device), rows):
+                merge_into(p, sub, raw_step)
+            for sub in _coalesced(afiles[p].read(ctx.device), rows):
+                merge_into(p, sub, steps.acc_merge_step)
+            if accs[p] is not None:
+                yield _finalize_aggregate(node, accs[p], steps, ctx.device)
+                accs[p] = None
+    finally:
+        rev.close()
+        _close_radix_files(ctx, list(afiles.values()) + list(rfiles.values()))
+
+
+# -- spill bookkeeping ------------------------------------------------------
+
+
+def _coalesced(pages: Iterator[Batch], rows: int) -> Iterator[Batch]:
+    """Consecutive spill pages concatenated, in order, into batches of at
+    most `rows` capacity (a page larger alone stays alone): a replay
+    merges or probes a scan batch's worth at a time, not a page (a page
+    is one partition's share of one batch)."""
+    pending, cap = [], 0
+    for b in pages:
+        if pending and cap + b.capacity > rows:
+            yield _collect_concat(iter(pending))
+            pending, cap = [], 0
+        pending.append(b)
+        cap += b.capacity
+    if pending:
+        yield _collect_concat(iter(pending))
+
+
+def _close_radix_files(ctx: ExecContext, files: List[SpillFile]) -> None:
+    """Close a radix operator's hybrid-spill files, counting their bytes
+    in radix.spill_bytes."""
+    spilled = sum(f.bytes for f in files)
+    if spilled:
+        ctx.bump("radix.spill_bytes", spilled)
+    for f in files:
+        f.close()
+
+
+def _record_spill_done(ctx: ExecContext, spillers) -> None:
+    """The bytes and rows one spilling operator's spillers wrote."""
+    spillers = [sp for sp in spillers if sp is not None]
+    ctx.bump("spill.bytes", sum(sp.spilled_bytes for sp in spillers))
+    ctx.bump("spill.rows", sum(sp.spilled_rows for sp in spillers))
+
+
+def _spill_replay_budget(ctx: ExecContext) -> Optional[int]:
+    """Bytes one replayed spill partition's build side must fit in: the
+    explicit per-partition budget when set, else the pool's revoke target.
+    None = unbudgeted."""
+    if ctx.config.join_spill_budget_bytes is not None:
+        return ctx.config.join_spill_budget_bytes
+    pool = ctx.memory_pool
+    if pool.limit is not None:
+        return max(1, int(pool.limit * pool.revoke_target))
+    return None
 
 
 def _finalize_aggregate(node: Aggregate, acc: Optional[Batch], steps,
@@ -1466,6 +1955,12 @@ class _JoinSpec(NamedTuple):
     right_output: list
 
 
+def _join_spec(node: HashJoin) -> _JoinSpec:
+    return _JoinSpec(node.kind, tuple(node.left_keys), tuple(node.right_keys),
+                     node.build_unique, list(node.left.output),
+                     list(node.right.output))
+
+
 def _execute_join(node: HashJoin, ctx: ExecContext) -> Iterator[Batch]:
     if node.residual is not None:
         raise NotImplementedError(
@@ -1475,16 +1970,335 @@ def _execute_join(node: HashJoin, ctx: ExecContext) -> Iterator[Batch]:
         raise NotImplementedError(
             f"{node.kind} hash joins are not supported by presto_tpu_torch yet")
     probe_stream, chain = _fused_child(node.left, ctx)
-    build_in = _collect_concat(execute_node(node.right, ctx))
+    build_stream = execute_node(node.right, ctx)
+    if ctx.config.radix_partitions > 1:
+        yield from _radix_join(node, ctx, probe_stream, build_stream, chain)
+        return
+    yield from _join_with_spill(node, ctx, probe_stream, build_stream, chain)
+
+
+def _join_probe(node: HashJoin, ctx: ExecContext, build_in: Optional[Batch],
+                probe_stream: Iterator[Batch], chain) -> Iterator[Batch]:
+    """Build one table and probe the stream through it (a FULL join's
+    unmatched build rows last)."""
     if build_in is None and node.kind == "inner":
         return  # empty build side: an inner join has no output
-    spec = _JoinSpec(node.kind, tuple(node.left_keys),
-                     tuple(node.right_keys), node.build_unique,
-                     list(node.left.output), list(node.right.output))
-    prober = _JoinProber(node, spec, ctx, build_in, chain)
+    prober = _JoinProber(node, _join_spec(node), ctx, build_in, chain)
     for pb in probe_stream:
         yield from prober.probe_batch(pb)
     yield from prober.tail()
+
+
+def _join_with_spill(node: HashJoin, ctx: ExecContext,
+                     probe_stream: Iterator[Batch],
+                     build_stream: Iterator[Batch], chain) -> Iterator[Batch]:
+    """One binary hash join over opened child streams. The build side is
+    collected under the pool; crossing the revoke threshold, or a revoke
+    request, switches to the partitioned spill (HashBuilderOperator's
+    SPILLING_INPUT state): both sides hash-partition to disk on the join
+    keys and each partition is joined on its own, with mid-build growth,
+    recursive repartitioning and per-partition role reversal when the
+    partition count proves too small. Also each leg of the multiway
+    join's binary cascade."""
+    mctx = LocalMemoryContext(ctx.memory_pool, "join-build")
+    build_batches: List[Batch] = []
+    bspiller = pspiller = None
+    can_spill = ctx.config.spill_enabled
+    rev = _RevokeFlag(ctx.memory_pool, can_spill)
+    try:
+        for b in build_stream:
+            nb = batch_device_bytes(b)
+            if can_spill and (rev.raised or ctx.should_spill(nb)):
+                bspiller = ctx.spill_manager.partitioning_spiller(
+                    node.right_keys, ctx.config.spill_partitions,
+                    "join-build",
+                    partition_budget_bytes=_spill_replay_budget(ctx),
+                    max_depth=max(0, ctx.config.spill_max_depth),
+                    on_grow=lambda _child, _p: ctx.bump(
+                        "spill.repartitions"))
+                ctx.track_spill(bspiller)
+                for bb in build_batches:
+                    bspiller.spill(bb)
+                if rev.take():
+                    ctx.bump("spill.revocations")
+                build_batches = []
+                mctx.set_bytes(0)
+                bspiller.spill(b)
+                for bb in build_stream:
+                    bspiller.spill(bb)
+                break
+            build_batches.append(b)
+            mctx.set_bytes(mctx.bytes + nb)
+
+        if bspiller is None:
+            yield from _join_probe(node, ctx,
+                                   _collect_concat(iter(build_batches)),
+                                   probe_stream, chain)
+            return
+
+        # the chained probe side, partitioned by the probe keys: both
+        # sides hash key content on the same schedule, so they are
+        # co-partitioned
+        pspiller = ctx.spill_manager.partitioning_spiller(
+            node.left_keys, bspiller.n_partitions, "join-probe")
+        ctx.track_spill(pspiller)
+        for pb in probe_stream:
+            pspiller.spill(chain(pb))
+        # mid-build growth may have split build partitions: mirror the
+        # split tree so replay pairs leaf with leaf
+        pspiller.align_to(bspiller)
+        yield from _replay_spilled_join(node, ctx, bspiller, pspiller, mctx)
+    finally:
+        rev.close()
+        if bspiller is not None:
+            _record_spill_done(ctx, [bspiller, pspiller])
+            bspiller.close()
+        if pspiller is not None:
+            pspiller.close()
+        mctx.set_bytes(0)
+
+
+def _reversed_join_shim(node: HashJoin) -> HashJoin:
+    """The same inner join with build and probe roles swapped (sound only
+    for an inner join without residual). Cached on the node."""
+    shim = node.__dict__.get("_reversed_shim")
+    if shim is None:
+        shim = HashJoin(kind="inner", left=node.right, right=node.left,
+                        left_keys=list(node.right_keys),
+                        right_keys=list(node.left_keys),
+                        residual=None, build_unique=False)
+        node.__dict__["_reversed_shim"] = shim
+    return shim
+
+
+def _reorder_output(b: Batch, names: List[str]) -> Batch:
+    """Columns of b in `names` order."""
+    return Batch(list(names), [b.type_of(n) for n in names],
+                 [b.column(n) for n in names], b.live, b.dicts)
+
+
+def _replay_spilled_join(node: HashJoin, ctx: ExecContext,
+                         bspiller, pspiller, mctx) -> Iterator[Batch]:
+    """Replay a co-partitioned spilled join leaf by leaf. A leaf whose
+    build side misses the replay budget first tries role reversal (build
+    from the smaller probe side: inner joins without residual), then
+    splits both sides by the next hash bits and recurses, and at the
+    depth bound fails with SpillLimitExceeded."""
+    budget = _spill_replay_budget(ctx)
+    max_depth = max(0, ctx.config.spill_max_depth)
+    out_names = [s for s, _ in node.output]
+    dev = ctx.device
+
+    def replay_leaf(bsp, psp, p: int) -> Iterator[Batch]:
+        bc, pc = bsp.children.get(p), psp.children.get(p)
+        if bc is not None or pc is not None:
+            # one side split here: mirror so both expose the same leaves
+            if bc is None:
+                bc = bsp.grow_partition(p, fanout=pc.n_partitions)
+            if pc is None:
+                pc = psp.grow_partition(p, fanout=bc.n_partitions)
+            bc.align_to(pc)
+            pc.align_to(bc)
+            for q in range(bc.n_partitions):
+                yield from replay_leaf(bc, pc, q)
+            return
+
+        bb = bsp.partition_est_bytes(p)
+        pb = psp.partition_est_bytes(p)
+        reversed_ = (budget is not None and bb > budget and pb < bb
+                     and node.kind == "inner" and node.residual is None)
+        build_bytes = pb if reversed_ else bb
+        if budget is not None and build_bytes > budget:
+            # even the smaller side misses the budget: split this leaf by
+            # the next hash bits and recurse, down to the depth bound
+            if bsp.depth >= max_depth:
+                raise SpillLimitExceeded(
+                    f"join spill partition is {build_bytes} bytes against a "
+                    f"{budget}-byte replay budget at max recursion depth "
+                    f"{max_depth} (join keys too skewed to split further)")
+            sub_b = bsp.grow_partition(p)
+            sub_p = psp.grow_partition(p, fanout=sub_b.n_partitions)
+            for q in range(sub_b.n_partitions):
+                yield from replay_leaf(sub_b, sub_p, q)
+            return
+
+        if reversed_:
+            ctx.bump("spill.role_reversals")
+            build_sp, probe_sp = psp, bsp
+            jnode = _reversed_join_shim(node)
+        else:
+            build_sp, probe_sp = bsp, psp
+            jnode = node
+
+        ctx.bump("spill.partitions")
+        build_in = _collect_concat(build_sp.read_partition(p, dev))
+        if build_in is None and node.kind == "inner":
+            return
+        # account the replayed partition: one past the pool limit fails
+        # the query cleanly
+        if build_in is not None:
+            mctx.set_bytes(batch_device_bytes(build_in))
+        out = _join_probe(jnode, ctx, build_in,
+                          _coalesced(probe_sp.read_partition(p, dev),
+                                     ctx.config.batch_rows), lambda b: b)
+        if reversed_:
+            for ob in out:
+                yield _reorder_output(ob, out_names)
+        else:
+            yield from out
+        mctx.set_bytes(0)
+
+    for p in range(bspiller.n_partitions):
+        yield from replay_leaf(bspiller, pspiller, p)
+
+
+# -- radix partitioning -----------------------------------------------------
+
+
+def _radix_tag(b: Batch, num_partitions: int, key_names) -> Optional[int]:
+    """The radix id a page was stamped with (serde.TaggedBatch) when its
+    decomposition matches this consumer's (same partition count and key
+    symbols), else None."""
+    tag = getattr(b, "radix", None)
+    if tag is None:
+        return None
+    r, total, keys = tag
+    if int(total) == num_partitions and tuple(keys) == tuple(key_names):
+        return int(r)
+    return None
+
+
+def _untag_batch(b: Batch) -> Batch:
+    """A plain Batch from a possibly tagged one."""
+    if type(b) is Batch:
+        return b
+    return Batch(b.names, b.types, b.columns, b.live, b.dicts)
+
+
+def _radix_split(b: Batch, key_names, P: int) -> Iterator[Tuple[int, Batch]]:
+    """(partition, sub-batch) for each partition that holds live rows of
+    `b`: one stable sort by radix id, the P counts to the host, one
+    window gather a partition at its power-of-two bucket."""
+    perm, counts = radix_perm(b, key_names, P)
+    cnts = counts.cpu().numpy()
+    starts = np.concatenate([[0], np.cumsum(cnts)])
+    for p in range(P):
+        n = int(cnts[p])
+        if n:
+            yield p, radix_window_perm(b, perm, int(starts[p]), n,
+                                       round_up_capacity(n))
+
+
+def _packed_concat(batches: List[Batch]) -> Optional[Batch]:
+    """The live rows of `batches` packed into one batch of power-of-two
+    capacity (a radix partition's build side)."""
+    merged = _collect_concat(iter(batches))
+    if merged is None:
+        return None
+    cap = round_up_capacity(merged.num_live())
+    merged = compact(merged)
+    if merged.capacity >= cap:
+        return _truncate(merged, cap)
+    return _pad_batch(merged, cap)
+
+
+def _radix_join(node: HashJoin, ctx: ExecContext,
+                probe_stream: Iterator[Batch],
+                build_stream: Iterator[Batch], chain) -> Iterator[Batch]:
+    """Radix-partitioned hash join: both sides split by the top bits of
+    the content hash, and each partition is built and probed on its own
+    small table. A partition whose build side passes
+    join_spill_budget_bytes (or the largest one, on a revoke request)
+    hybrid-spills: its batches go to host files and it is joined after the
+    resident partitions, one at a time."""
+    P = ctx.config.radix_partitions
+    radix_bits(P)
+    budget = ctx.config.join_spill_budget_bytes
+    dev = ctx.device
+    parts: List[List[Batch]] = [[] for _ in range(P)]
+    pbytes = [0] * P
+    bfiles: Dict[int, SpillFile] = {}
+    pfiles: Dict[int, SpillFile] = {}
+
+    def spill_build_partition(p: int) -> None:
+        f = ctx.spill_manager.spill_file(f"radix-join-build-p{p}")
+        ctx.track_spill(f)
+        for bb in parts[p]:
+            f.append(bb)
+        parts[p] = []
+        pbytes[p] = 0
+        bfiles[p] = f
+        ctx.bump("radix.partitions_spilled")
+
+    def split(b: Batch, keys) -> Iterator[Tuple[int, Batch]]:
+        rid = _radix_tag(b, P, keys)
+        ub = _untag_batch(b)
+        return [(rid, ub)] if rid is not None else _radix_split(ub, keys, P)
+
+    rev = _RevokeFlag(ctx.memory_pool, ctx.config.spill_enabled)
+    try:
+        for b in build_stream:
+            for p, sub in split(b, node.right_keys):
+                if p in bfiles:
+                    bfiles[p].append(sub)
+                    continue
+                parts[p].append(sub)
+                pbytes[p] += batch_device_bytes(sub)
+                if budget is not None and pbytes[p] > budget:
+                    spill_build_partition(p)
+            if rev.take():
+                # the pool asked for memory back: spill the largest
+                # resident build partition
+                resident = [(pp, pbytes[pp]) for pp in range(P)
+                            if parts[pp] and pp not in bfiles]
+                if resident:
+                    pp, _ = max(resident, key=lambda t: t[1])
+                    spill_build_partition(pp)
+                    ctx.bump("spill.revocations")
+
+        spec = _join_spec(node)
+
+        def ident(bb):
+            return bb  # the chain runs before the split
+
+        probers: Dict[int, _JoinProber] = {}
+        for p in range(P):
+            if p in bfiles:
+                continue
+            build_in = _packed_concat(parts[p])
+            parts[p] = []
+            probers[p] = _JoinProber(node, spec, ctx, build_in, ident,
+                                     fanout_scan=16)
+        for raw in probe_stream:
+            rid = _radix_tag(raw, P, node.left_keys)
+            pb = chain(_untag_batch(raw))
+            subs = ([(rid, pb)] if rid is not None
+                    else _radix_split(pb, node.left_keys, P))
+            for p, sub in subs:
+                if p in bfiles:
+                    f = pfiles.get(p)
+                    if f is None:
+                        f = pfiles[p] = ctx.spill_manager.spill_file(
+                            f"radix-join-probe-p{p}")
+                        ctx.track_spill(f)
+                    f.append(sub)
+                else:
+                    yield from probers[p].probe_batch(sub)
+        for p in sorted(probers):
+            yield from probers[p].tail()
+        # hybrid-spilled partitions, one resident at a time
+        for p in sorted(bfiles):
+            prober = _JoinProber(node, spec, ctx,
+                                 _packed_concat(list(bfiles[p].read(dev))),
+                                 ident, fanout_scan=16)
+            pf = pfiles.get(p)
+            if pf is not None:
+                for sub in _coalesced(pf.read(dev), ctx.config.batch_rows):
+                    yield from prober.probe_batch(sub)
+            yield from prober.tail()
+    finally:
+        rev.close()
+        _close_radix_files(ctx, list(bfiles.values()) + list(pfiles.values()))
 
 
 def _execute_index_join(node: IndexJoin, ctx: ExecContext) -> Iterator[Batch]:
@@ -1709,6 +2523,252 @@ class _JoinProber:
         yield Batch(names, types, cols, t.orig_live & (self.bm == 0),
                     {k: d for k, d in t.batch.dicts.items()
                      if dict_owner(k) in self.rsyms})
+
+
+# -- multiway join -------------------------------------------------------------
+# plan/multiway.py's MultiwayJoin: N resident build tables, one probe pass
+# through all N per batch (ops/join.multiway_*). A build under pool
+# pressure, or a leg the one pass cannot run exactly, falls back to the
+# binary cascade, whose legs keep the partitioned spiller.
+
+
+def _mw_cascade_shims(node: MultiwayJoin) -> List[HashJoin]:
+    """Per-leg binary HashJoins: leg i's join with a never-executed scan
+    stub standing in for the cascade intermediate (probe output plus the
+    payloads of legs < i) on the left. They carry the leg's keys, kind and
+    uniqueness for _JoinProber and the engine choice."""
+    shims = node.__dict__.get("_mw_shims")
+    if shims is None:
+        shims = []
+        schema = list(node.probe.output)
+        for i in range(len(node.builds)):
+            stub = TableScan(catalog="", table=f"__mw_cascade_{i}__",
+                             assignments={}, output=list(schema))
+            shims.append(HashJoin(
+                kind=node.kinds[i], left=stub, right=node.builds[i],
+                left_keys=list(node.probe_keys[i]),
+                right_keys=list(node.build_keys[i]),
+                build_unique=bool(node.build_unique[i])))
+            schema = schema + list(node.builds[i].output)
+        node.__dict__["_mw_shims"] = shims
+    return shims
+
+
+def _mw_plan_specs(node: MultiwayJoin):
+    """Per leg, from the plan alone: the key sources (-1 = the probe
+    batch, j >= 0 = unique build j's payload), the probe-side key dtypes
+    and the pairwise-promoted compare dtypes. Memoized on the node."""
+    memo = node.__dict__.get("_mw_plan")
+    if memo is not None:
+        return memo
+    pout = dict(node.probe.output)
+    bouts = [dict(b.output) for b in node.builds]
+    legs = []
+    for i in range(len(node.builds)):
+        sources, pdts = [], []
+        for sym in node.probe_keys[i]:
+            if sym in pout:
+                sources.append(-1)
+                pdts.append(torch_dtype(pout[sym].dtype))
+            else:
+                for j in range(i):
+                    if node.build_unique[j] and sym in bouts[j]:
+                        sources.append(j)
+                        pdts.append(torch_dtype(bouts[j][sym].dtype))
+                        break
+                else:
+                    raise KeyError(
+                        f"multiway probe key {sym!r} resolves against no "
+                        f"probe column or earlier unique build payload")
+        cdts = tuple(torch.promote_types(torch_dtype(bouts[i][bk].dtype), pd)
+                     for bk, pd in zip(node.build_keys[i], pdts))
+        legs.append((tuple(sources), tuple(pdts), cdts))
+    node.__dict__["_mw_plan"] = legs
+    return legs
+
+
+class _MultiwayProber:
+    """N resident build tables, probed in one pass a batch. Unique legs
+    probe the sort engine's single-match table; fanout legs the hash
+    engine's `join_probe` (exact counts, which a LEFT leg needs) or, for
+    inner legs, the sort engine's ranges. All-unique chains (the dominant
+    star shape) stay row-aligned with the probe batch; others take a
+    counts pass (each hash leg's fanout starts at 16 and doubles on
+    overflow) and a chunked mixed-radix expansion. `cascade` names why
+    the one pass cannot run (a LEFT fanout leg without exact counts):
+    the caller then falls back to the binary cascade."""
+
+    def __init__(self, node: MultiwayJoin, ctx: ExecContext,
+                 builds_in: List[Optional[Batch]], chain):
+        from presto_tpu_torch.plan.stats import choose_breaker_engine
+
+        self.node, self.ctx, self.chain = node, ctx, chain
+        self.cascade = None
+        self.empty = any(b is None and k == "inner"
+                         for b, k in zip(builds_in, node.kinds))
+        if self.empty:
+            return
+        self.psyms = [s for s, _ in node.probe.output]
+        self.bsyms = tuple(tuple(s for s, _ in b.output)
+                           for b in node.builds)
+        legs = _mw_plan_specs(node)
+        shims = _mw_cascade_shims(node)
+        specs, tables = [], []
+        for i, build_in in enumerate(builds_in):
+            if build_in is None:
+                # an empty LEFT leg: a table of dead rows
+                schema = node.builds[i].output
+                build_in = empty_batch([s for s, _ in schema],
+                                       [t for _, t in schema], ctx.device)
+            sources, pdts, cdts = legs[i]
+            keys = tuple(node.build_keys[i])
+            unique = bool(node.build_unique[i])
+            hash_engine = False
+            if not unique:
+                try:
+                    eng, _ = choose_breaker_engine(
+                        shims[i], ctx.catalog, ctx.config.breaker_engine)
+                except Exception:  # noqa: BLE001 — the JAX package's
+                    eng = "sort"  # fallback: a failed estimate sorts
+                hash_engine = (eng == "hash" and join_compare_dtypes(
+                    build_in, keys, pdts) == cdts)
+                if not hash_engine and node.kinds[i] == "left":
+                    # sorted fanout counts can widen, which breaks a LEFT
+                    # leg's null-extension: binary cascade instead
+                    self.cascade = f"left fanout leg {i} lacks exact counts"
+                    return
+            specs.append(MwSpec(
+                probe_keys=tuple(node.probe_keys[i]), build_keys=keys,
+                sources=sources, kind=node.kinds[i], unique=unique,
+                hash_engine=hash_engine,
+                compare_dtypes=cdts if hash_engine else ()))
+            tables.append(hash_build_side(build_in, keys, pdts) if hash_engine
+                          else build_side(build_in, keys))
+        self.specs = tuple(specs)
+        self.tables = tuple(tables)
+        self.fanouts = tuple(0 if sp.unique else 16 for sp in self.specs)
+        self.all_unique = all(sp.unique for sp in self.specs)
+
+    def probe_batch(self, pb_raw: Batch) -> Iterator[Batch]:
+        if self.empty:
+            return
+        ctx, tables, specs = self.ctx, self.tables, self.specs
+        pb = self.chain(pb_raw)
+        if self.all_unique:
+            yield multiway_probe_unique(tables, pb, specs, self.psyms,
+                                        self.bsyms)
+            return
+        fanouts = self.fanouts
+        state, chats, offsets, T, total, ovfs = multiway_counts(
+            tables, pb, specs, fanouts)
+        ovn = ovfs.cpu().numpy()
+        if ovn.sum():
+            # a hash leg's counts are exact but its match matrix
+            # truncated: double the overflowing legs' widths until every
+            # row fits
+            ctx.bump("join.fanout_overflow_rows", int(ovn.sum()))
+            ctx.bump("multiway.fanout_overflow_rows", int(ovn.sum()))
+            while ovn.sum():
+                fanouts = tuple(f * 2 if ovn[i] else f
+                                for i, f in enumerate(fanouts))
+                for i, f in enumerate(fanouts):
+                    if (specs[i].hash_engine
+                            and f > tables[i].slot_row.shape[0]):
+                        raise RuntimeError(
+                            "multiway join fanout exceeded build table "
+                            f"capacity on leg {i}")
+                ctx.bump("join.fanout_reprobes")
+                state, chats, offsets, T, total, ovfs = multiway_counts(
+                    tables, pb, specs, fanouts)
+                ovn = ovfs.cpu().numpy()
+        out_cap = pb.capacity
+        tot = int(total)
+        base = 0
+        while True:
+            yield multiway_expand(tables, pb, specs, state, chats, offsets,
+                                  T, base, out_cap, self.psyms, self.bsyms)
+            base += out_cap
+            if base >= tot:
+                break
+
+
+def _mw_binary_cascade(node: MultiwayJoin, ctx: ExecContext,
+                       probe_stream: Iterator[Batch], chain,
+                       collected: List[List[Batch]],
+                       pressure_at: Optional[int], partial: List[Batch],
+                       bstream) -> Iterator[Batch]:
+    """The chain as binary joins over the opened streams: leg i joins the
+    cascade intermediate with build i. Builds collected before the
+    pressure point replay from memory; the build at the pressure point
+    resumes its partly consumed stream and it and the later legs run
+    through `_join_with_spill`, so a build past the pool spills."""
+    ctx.bump("multiway.cascade_fallbacks")
+    stream = probe_stream
+    for i, shim in enumerate(_mw_cascade_shims(node)):
+        leg_chain = chain if i == 0 else (lambda b: b)
+        if pressure_at is None or i < pressure_at:
+            build_in = (_collect_concat(iter(collected[i]))
+                        if i < len(collected) else
+                        _collect_concat(execute_node(node.builds[i], ctx)))
+            stream = _join_probe(shim, ctx, build_in, stream, leg_chain)
+        else:
+            bs = (itertools.chain(iter(partial), bstream)
+                  if i == pressure_at else execute_node(node.builds[i], ctx))
+            stream = _join_with_spill(shim, ctx, stream, bs, leg_chain)
+    yield from stream
+
+
+def _execute_multiway_join(node: MultiwayJoin,
+                           ctx: ExecContext) -> Iterator[Batch]:
+    """Collect the N build sides under the pool, then probe every batch
+    through all N in one pass. Pool pressure while collecting, or a leg
+    the one pass cannot run exactly, falls back to the binary cascade."""
+    probe_stream, chain = _fused_child(node.probe, ctx)
+    ctx.bump("multiway.joins")
+    ctx.bump("multiway.legs", len(node.builds))
+    mctx = LocalMemoryContext(ctx.memory_pool, "mw-join-build")
+    can_spill = ctx.config.spill_enabled
+    rev = _RevokeFlag(ctx.memory_pool, can_spill)
+    try:
+        collected: List[List[Batch]] = []
+        total_bytes = 0
+        pressure_at = None
+        partial: List[Batch] = []
+        bstream = None
+        for i in range(len(node.builds)):
+            bstream = execute_node(node.builds[i], ctx)
+            partial = []
+            for b in bstream:
+                nb = batch_device_bytes(b)
+                partial.append(b)
+                if can_spill and (rev.take() or ctx.should_spill(nb)):
+                    pressure_at = i
+                    break
+                total_bytes += nb
+                mctx.set_bytes(total_bytes)
+            if pressure_at is not None:
+                break
+            collected.append(partial)
+            partial, bstream = [], None
+
+        if pressure_at is not None:
+            yield from _mw_binary_cascade(node, ctx, probe_stream, chain,
+                                          collected, pressure_at, partial,
+                                          bstream)
+            return
+        prober = _MultiwayProber(
+            node, ctx, [_collect_concat(iter(bb)) for bb in collected],
+            chain)
+        if prober.cascade is not None:
+            yield from _mw_binary_cascade(node, ctx, probe_stream, chain,
+                                          collected, None, [], None)
+            return
+        ctx.bump("multiway.fused_dispatches")
+        for pb in probe_stream:
+            yield from prober.probe_batch(pb)
+    finally:
+        rev.close()
+        mctx.set_bytes(0)
 
 
 # -- semi joins ---------------------------------------------------------------
@@ -2215,16 +3275,22 @@ def _bind_plan_params(node: PlanNode, bindings) -> None:
 
 
 def run_plan(qp: QueryPlan, ctx: ExecContext) -> Batch:
-    """Execute a QueryPlan to one compacted Batch on the context's device."""
-    bind_scalar_subqueries(qp, ctx)
-    out_node = qp.root
-    merged = _collect_concat(execute_node(out_node.child, ctx))
-    if merged is None:
-        types = dict(out_node.child.output)
-        merged = empty_batch(out_node.symbols,
-                             [types[s] for s in out_node.symbols], ctx.device)
-    merged = merged.select(out_node.symbols).rename(out_node.names)
-    return compact(merged)
+    """Execute a QueryPlan to one compacted Batch on the context's device.
+    Whatever spill files the operators left open (a query that failed
+    mid-spill) are closed and unlinked on the way out."""
+    try:
+        bind_scalar_subqueries(qp, ctx)
+        out_node = qp.root
+        merged = _collect_concat(execute_node(out_node.child, ctx))
+        if merged is None:
+            types = dict(out_node.child.output)
+            merged = empty_batch(out_node.symbols,
+                                 [types[s] for s in out_node.symbols],
+                                 ctx.device)
+        merged = merged.select(out_node.symbols).rename(out_node.names)
+        return compact(merged)
+    finally:
+        ctx.cleanup_spill()
 
 
 def mark_breaker_engines(root: PlanNode, ctx: ExecContext) -> None:

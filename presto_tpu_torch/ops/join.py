@@ -305,6 +305,210 @@ def hash_probe_expand(table: HashJoinTable, mm, counts, offsets,
     return probe_row, build_idx, out_live
 
 
+# ---------------------------------------------------------------------------
+# multiway (N-ary) probe: one probe batch walked through all N builds in a
+# single pass, with no intermediate batch between legs (PAPERS.md
+# 1905.13376). An output row is a probe row times one (match | left-null)
+# per leg, decomposed mixed-radix over the per-leg match counts.
+
+
+class MwSpec(NamedTuple):
+    """One leg of a multiway probe. `sources[k]` locates probe-side key k:
+    -1 = the probe batch itself, j >= 0 = the payload of earlier UNIQUE
+    build j, gathered at that leg's matched row (snowflake chains).
+    Non-unique legs probe through the `join_probe` kernel (`hash_engine`,
+    exact counts) or the sort engine (counts may widen; inner kinds only,
+    expand re-verifies keys)."""
+
+    probe_keys: tuple
+    build_keys: tuple
+    sources: tuple
+    kind: str                # inner | left
+    unique: bool             # single-match sort-engine probe
+    hash_engine: bool        # fanout leg probes through join_probe
+    compare_dtypes: tuple    # hash-engine encode dtypes (else ())
+
+
+def _mw_key_batch(probe: Batch, tables, spec: MwSpec, idxs, matcheds):
+    """Key batch for one leg: key columns from the probe batch and/or
+    earlier unique legs' payloads, with rows unmatched in the source leg
+    made NULL (a NULL key never matches, the binary chain's semantics)."""
+    names, types, cols, dicts = [], [], [], {}
+    for sym, src in zip(spec.probe_keys, spec.sources):
+        if src < 0:
+            c = probe.column(sym)
+            t = probe.type_of(sym)
+            d = probe.dicts.get(sym)
+        else:
+            tb = tables[src].batch
+            c = tb.column(sym).gather(idxs[src])
+            v = matcheds[src] if c.validity is None else \
+                (c.validity & matcheds[src])
+            c = Column(c.values, v, c.hi, c.sizes, c.evalid, c.keys)
+            t = tb.type_of(sym)
+            d = tb.dicts.get(sym)
+        names.append(sym)
+        types.append(t)
+        cols.append(c)
+        if d is not None:
+            dicts[sym] = d
+    return Batch(names, types, cols, probe.live, dicts)
+
+
+def _mw_unique_state(specs, state):
+    """(idxs, matcheds) of the unique legs: key sources for later
+    snowflake legs."""
+    idxs, matcheds = {}, {}
+    for i, spec in enumerate(specs):
+        if spec.unique:
+            idxs[i], matcheds[i] = state[i]
+    return idxs, matcheds
+
+
+def multiway_counts(tables, probe: Batch, specs, fanouts):
+    """Pass 1 of the N-ary probe: per-leg match state, per-leg effective
+    counts (a left leg floors at 1, its null-extension row), the combined
+    per-probe-row product T and its exclusive prefix sum. ``ovfs[i]`` > 0
+    means hash leg i truncated its match matrix: the caller doubles that
+    leg's fanout and runs the pass again.
+
+    Returns (state, chats, offsets, T, total, ovfs)."""
+    state, chats, ovfs = [], [], []
+    idxs, matcheds = {}, {}
+    dev = probe.device
+    for i, spec in enumerate(specs):
+        kb = _mw_key_batch(probe, tables, spec, idxs, matcheds)
+        kb = align_probe_strings(kb, spec.probe_keys, tables[i],
+                                 spec.build_keys)
+        if spec.unique:
+            idx, matched = probe_unique(tables[i], kb, spec.probe_keys,
+                                        spec.build_keys)
+            idxs[i], matcheds[i] = idx, matched
+            c = matched.to(torch.int64)
+            state.append((idx, matched))
+            ovfs.append(torch.zeros((), dtype=torch.int64, device=dev))
+        elif spec.hash_engine:
+            mm, c, _off, _tot, _live, ovf = hash_probe_counts(
+                tables[i], kb, spec.probe_keys, spec.compare_dtypes,
+                fanouts[i])
+            state.append((mm, c))
+            ovfs.append(ovf.reshape(()))
+        else:
+            lo, c, _off, _tot, _live, _ovf = probe_counts(
+                tables[i], kb, spec.probe_keys, spec.build_keys,
+                fanouts[i])
+            state.append((lo, c))
+            ovfs.append(torch.zeros((), dtype=torch.int64, device=dev))
+        chats.append(torch.clamp(c, min=1) if spec.kind == "left" else c)
+    T = probe.live.to(torch.int64)
+    for chat in chats:
+        T = T * chat
+    offsets = torch.cumsum(T, 0) - T
+    return (tuple(state), tuple(chats), offsets, T, T.sum(),
+            torch.stack(ovfs))
+
+
+def multiway_expand(tables, probe: Batch, specs, state, chats, offsets,
+                    T, chunk_base: int, out_capacity: int, probe_cols,
+                    build_cols):
+    """Pass 2: materialize output slots [chunk_base, chunk_base +
+    out_capacity). One searchsorted over the inclusive ends of T maps a
+    slot to its probe row; the rest of the ordinal decomposes mixed-radix
+    across legs (last leg fastest). A left leg emits its null-extension at
+    digit 0 when unmatched. ``build_cols[i]`` are leg i's payload
+    symbols."""
+    n = len(specs)
+    probe_row, r, in_range = _slots_to_rows(T, offsets, chunk_base,
+                                            out_capacity)
+    digits = [None] * n
+    for t in range(n - 1, -1, -1):
+        c = torch.clamp(chats[t][probe_row], min=1)
+        digits[t] = r % c
+        r = r // c
+    idxs, matcheds = _mw_unique_state(specs, state)
+    out_live = in_range
+    bidx, bvalid = [], []
+    for t, spec in enumerate(specs):
+        d = digits[t]
+        if spec.unique:
+            idx, matched = state[t]
+            bi = idx[probe_row]
+            ok = matched[probe_row]
+        elif spec.hash_engine:
+            mm, c = state[t]
+            oc = torch.clamp(d, 0, mm.shape[1] - 1)
+            bi = mm[probe_row, oc].to(torch.int64)
+            ok = (d < c[probe_row]) & (bi >= 0)
+            bi = torch.clamp(bi, 0, tables[t].batch.capacity - 1)
+        else:
+            lo, c = state[t]
+            bi = torch.clamp(lo[probe_row] + d, 0,
+                             tables[t].hashes.shape[0] - 1)
+            ok = d < c[probe_row]
+            # re-verify the real keys in the leg's aligned code space
+            # (hash collisions and widened counts)
+            kb = align_probe_strings(
+                _mw_key_batch(probe, tables, spec, idxs, matcheds),
+                spec.probe_keys, tables[t], spec.build_keys)
+            ok = ok & _keys_equal(tables[t], bi, kb, spec.probe_keys,
+                                  spec.build_keys, probe_idx=probe_row)
+        if spec.kind == "inner":
+            out_live = out_live & ok
+        bidx.append(bi)
+        bvalid.append(ok)
+    return _mw_output(probe, tables, probe_row, bidx, bvalid, out_live,
+                      probe_cols, build_cols)
+
+
+def _mw_output(probe: Batch, tables, probe_row, bidx, bvalid, out_live,
+               probe_cols, build_cols) -> Batch:
+    """The probe columns gathered at `probe_row` (None: as they are) and
+    each leg's payload at its build rows, NULL where the leg did not
+    match."""
+    names, types, cols, dicts = [], [], [], {}
+    for sym in probe_cols:
+        names.append(sym)
+        types.append(probe.type_of(sym))
+        c = probe.column(sym)
+        cols.append(c if probe_row is None else c.gather(probe_row))
+        carry_dicts(probe.dicts, dicts, sym)
+    for t, table in enumerate(tables):
+        tb = table.batch
+        for sym in build_cols[t]:
+            names.append(sym)
+            types.append(tb.type_of(sym))
+            c = tb.column(sym).gather(bidx[t])
+            v = bvalid[t] if c.validity is None else \
+                (c.validity & bvalid[t])
+            cols.append(Column(c.values, v, c.hi, c.sizes, c.evalid,
+                               c.keys))
+            carry_dicts(tb.dicts, dicts, sym)
+    return Batch(names, types, cols, out_live, dicts)
+
+
+def multiway_probe_unique(tables, probe: Batch, specs, probe_cols,
+                          build_cols) -> Batch:
+    """All-unique path, the dominant star shape: every leg matches at
+    most one build row, so the output is row-aligned with the probe batch
+    (probe columns pass through, each leg costs one probe and one payload
+    gather)."""
+    out_live = probe.live
+    idxs, matcheds = {}, {}
+    for i, spec in enumerate(specs):
+        kb = _mw_key_batch(probe, tables, spec, idxs, matcheds)
+        kb = align_probe_strings(kb, spec.probe_keys, tables[i],
+                                 spec.build_keys)
+        idx, matched = probe_unique(tables[i], kb, spec.probe_keys,
+                                    spec.build_keys)
+        idxs[i], matcheds[i] = idx, matched
+        if spec.kind == "inner":
+            out_live = out_live & matched
+    n = len(specs)
+    return _mw_output(probe, tables, None, [idxs[t] for t in range(n)],
+                      [matcheds[t] for t in range(n)], out_live,
+                      probe_cols, build_cols)
+
+
 def gather_join_output(probe: Batch, table, probe_row, build_idx, out_live,
                        probe_cols: Sequence[str], build_cols: Sequence[str],
                        build_prefix: str = "") -> Batch:

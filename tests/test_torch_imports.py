@@ -52,3 +52,15 @@ def test_guard_covers_structural_and_geo_modules():
     for path in ("presto_tpu_torch/expr/structural.py",
                  "presto_tpu_torch/expr/geo.py"):
         assert path in files, path
+
+
+def test_guard_covers_memory_modules():
+    """The memory pool, page format, spiller, partition hash, radix and
+    multiway modules are among the files guarded above."""
+    files = set(_port_files())
+    for path in ("presto_tpu_torch/memory.py", "presto_tpu_torch/serde.py",
+                 "presto_tpu_torch/spiller.py",
+                 "presto_tpu_torch/ops/partition.py",
+                 "presto_tpu_torch/ops/radix.py",
+                 "presto_tpu_torch/plan/multiway.py"):
+        assert path in files, path

@@ -448,7 +448,7 @@ def test_type_parsing():
 def _strip_marks(text: str):
     import re
 
-    return [re.sub(r"\s+\[(fragment|join)=[^\]]*\]", "", ln)
+    return [re.sub(r"\s+\[fragment=[^\]]*\]", "", ln)
             for ln in text.splitlines()]
 
 

@@ -16,6 +16,7 @@
 
 import dataclasses
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -111,14 +112,15 @@ def test_tables_identical(catalogs):
                     == dataclasses.asdict(pt.column_stats(col)))
 
 
-def test_q1_q6_q3_match_reference(catalogs):
+def test_q1_q6_q3_match_reference(catalogs, reference_frames_dir):
     """The port under both engines against one frame a query of the JAX
     package (its per-batch path, which it keeps bit-identical to its fused
-    default, tests/test_fragment_fusion.py; the CBO's engines), exactly."""
+    default, tests/test_fragment_fusion.py; the CBO's engines), exactly:
+    the frame `reference_frame` shares with the 22-query cases (these
+    texts are theirs)."""
     ref, port = catalogs
-    rr = RefRunner(ref, RefConfig(fragment_fusion=False))
     for q, sql in QUERIES.items():
-        want = rr.run(sql)
+        want = reference_frame(ref, q, reference_frames_dir)
         for engine in ("auto", "hash"):
             got = LocalRunner(port, ExecConfig(breaker_engine=engine),
                               device="cpu").run(sql)
@@ -160,13 +162,12 @@ def reference_frames_dir(tmp_path_factory):
     return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
 
 
-def reference_frame(ref, q: str, frames_dir, sql: str = None):
-    """The JAX package's frame of TPC-H query q (or of `sql`, named q) on
-    its per-batch path with the CBO's engines, computed once in this
-    session and shared: the first process to claim it computes it, another
-    one waits for its file (and computes it itself if none appears within
-    120 s)."""
-    path = frames_dir / f"tpch_reference_{q}.pkl"
+def shared(frames_dir, name: str, compute):
+    """compute() once in this session and shared between the test
+    processes through `frames_dir`/`name`.pkl: the first process to claim
+    `name` computes and writes it, another one waits for its file (and
+    computes it itself if none appears within 120 s)."""
+    path = frames_dir / f"{name}.pkl"
     try:
         os.close(os.open(path.with_name(f"{path.name}.claim"),
                          os.O_CREAT | os.O_EXCL | os.O_WRONLY))
@@ -175,13 +176,23 @@ def reference_frame(ref, q: str, frames_dir, sql: str = None):
         while not path.exists() and time.monotonic() < deadline:
             time.sleep(0.05)
         if path.exists():
-            return pd.read_pickle(path)
-    want = RefRunner(ref, RefConfig(fragment_fusion=False)).run(
-        TPCH[q] if sql is None else sql)
+            with open(path, "rb") as f:
+                return pickle.load(f)
+    out = compute()
     tmp = path.with_name(f"{path.name}.{os.getpid()}")
-    want.to_pickle(tmp)
+    with open(tmp, "wb") as f:
+        pickle.dump(out, f)
     os.replace(tmp, path)  # atomic: a reader never sees a partial file
-    return want
+    return out
+
+
+def reference_frame(ref, q: str, frames_dir, sql: str = None):
+    """The JAX package's frame of TPC-H query q (or of `sql`, named q) on
+    its per-batch path with the CBO's engines, computed once in this
+    session and shared between the test processes (`shared`)."""
+    return shared(frames_dir, f"tpch_reference_{q}", lambda: RefRunner(
+        ref, RefConfig(fragment_fusion=False)).run(
+            TPCH[q] if sql is None else sql))
 
 
 # engine-major order, so a query's auto case has usually written the
@@ -220,16 +231,16 @@ def test_explain_marks_engines_like_reference(catalogs):
             rr = RefRunner(ref, RefConfig(breaker_engine=engine))
             pr = LocalRunner(port, ExecConfig(breaker_engine=engine),
                              device="cpu")
-            # the port has no whole-fragment fusion and no multiway join
-            # (it runs join chains as binary joins), so no [fragment=] and
-            # no [join=] mark
-            want = [re.sub(r"\s+\[(fragment|join)=[^\]]*\]", "", ln)
+            # the port has no whole-fragment fusion, so no [fragment=]
+            # mark; the multiway verdicts ([join=]) are the JAX package's
+            want = [re.sub(r"\s+\[fragment=[^\]]*\]", "", ln)
                     for ln in rr.explain(sql).splitlines()]
             assert pr.explain(sql).splitlines() == want
 
 
-def test_connector_from_reference_tables(catalogs):
-    """Tables carried across as host arrays give the same answer."""
+def test_connector_from_reference_tables(catalogs, reference_frames_dir):
+    """Tables carried across as host arrays give the same answer as the
+    JAX package's frame of Q6 (the one the 22-query cases share)."""
     ref, _ = catalogs
     rc = ref.connectors["tpch"]
     rc.get_table("lineitem")
@@ -239,7 +250,7 @@ def test_connector_from_reference_tables(catalogs):
     cat.register("m", convert.connector_from_tables(
         {"lineitem": rc.tables["lineitem"]}), default=True)
     got = LocalRunner(cat, device="cpu").run(Q6)
-    want = RefRunner(ref, RefConfig(fragment_fusion=False)).run(Q6)
+    want = reference_frame(ref, "q6", reference_frames_dir)
     assert list(got["revenue"]) == list(want["revenue"])
 
 
