@@ -1308,6 +1308,8 @@ def phase_tpch22(torch, cat, errs):
             dev = device_profile(torch, lambda: runners[eng].run(sql),
                                  check=q == "q1")
             outs[eng] = out
+            if q in SCAN_QUERIES:
+                MEMORY_FRAMES[(sql, eng)] = out
             if q in oracles:
                 check_oracle(out, oracles[q], q, f"{q} {eng} SF {SF} oracle")
             summary.append({"query": q, "engine": eng, "rows": len(out),
@@ -2564,6 +2566,464 @@ def check_memory_unit(unit, label, eng, runner, sql, stats, launches,
 
 
 # ---------------------------------------------------------------------------
+# phase 3b'''': scans from files
+
+# The card's Python has pyarrow with its ORC and Parquet modules (24.0.0
+# beside torch 2.11.0+cu128), so this phase runs the Parquet and ORC
+# connectors there; without pyarrow it fails at the import.
+SCAN_QUERIES = ("q1", "q6", "q3", "q18")
+# the Parquet copy's row groups: under the scan's 2^17-row batch, so a
+# split is one row group, decoded once (a larger group is split into
+# parts that each decode the whole group, as in the JAX package)
+SCAN_ROW_GROUP_ROWS = 100_000
+# the memory catalog's frames of SCAN_QUERIES, kept by the 22-query phase:
+# (sql, engine) -> frame
+MEMORY_FRAMES = {}
+SCAN_COUNTERS = ("splits_pruned", "rows_predecode_filtered", "bytes_skipped")
+# a partitioned CTAS of orders, a pruned query, an INSERT and a read back,
+# into a fresh directory (catalog `hv`) each time
+HIVE_STATEMENTS = [
+    ("ctas", "create table hv.orders_p with (partitioned_by = "
+             "array['o_orderstatus']) as select o_orderkey, o_custkey, "
+             "o_totalprice, o_orderdate, o_orderstatus from orders"),
+    ("pruned", "select count(*) n, sum(o_totalprice) s from hv.orders_p "
+               "where o_orderstatus = 'F'"),
+    ("insert", "insert into hv.orders_p select o_orderkey, o_custkey, "
+               "o_totalprice, o_orderdate, o_orderstatus from orders "
+               "where o_orderdate >= date '1998-01-01'"),
+    ("read_back", "select o_orderstatus, count(*) n, sum(o_totalprice) s "
+                  "from hv.orders_p group by o_orderstatus "
+                  "order by o_orderstatus"),
+]
+# a CSV, a SQLite and a remote-service table, each joined with the memory
+# catalog's tables
+FEDERATION = {
+    "csv_nation": "select f.n_name, count(*) n from customer c "
+                  "join files.nation f on c.c_nationkey = f.n_nationkey "
+                  "group by f.n_name order by f.n_name",
+    "sqlite_supplier": "select n.n_name, count(*) n, sum(s.s_acctbal) b "
+                       "from db.supplier s join nation n "
+                       "on s.s_nationkey = n.n_nationkey "
+                       "group by n.n_name order by n.n_name",
+    "remote_orders": "select count(*) n, sum(l.l_quantity) q "
+                     "from rs.big_orders b join lineitem l "
+                     "on l.l_orderkey = b.o_orderkey",
+}
+BIG_ORDER_QUANTILE = 0.99  # the remote table: orders above it by price
+FED_RTOL = 1e-9  # SQLite's float account balances, summed in another order
+# ORC stripes of about 43 K lineitem rows (pyarrow's writer cuts a stripe
+# at this many bytes): the ORC connector splits every stripe into the
+# same number of parts, and a part larger than the scan's 2^17-row batch
+# does not fit it in either package (ROADMAP §3); the writer's default
+# (64 MB) gives parts past 2^17 rows at SF 1
+ORC_STRIPE_BYTES = 4 << 20
+
+
+def scan_files(conn, root):
+    """Files of the generator's tables (`conn`, a memory connector) under
+    `root`: every table as Parquet (the memory catalog's rows, row groups
+    of SCAN_ROW_GROUP_ROWS), lineitem sorted by l_shipdate in row groups of 2^17, lineitem
+    and orders as ORC (stripes of ORC_STRIPE_BYTES) with their stripe
+    sidecars, nation as CSV, supplier
+    in SQLite, and the dearest orders (`big_orders`) behind an in-process
+    table service on loopback. Returns the directories and the service."""
+    import sqlite3
+
+    import numpy as np
+    import pandas as pd
+
+    from presto_tpu_torch.catalog.orc import export_table_to_orc
+    from presto_tpu_torch.catalog.parquet import write_table
+    from presto_tpu_torch.catalog.remote import RemoteTableService
+
+    dirs = {k: os.path.join(root, k) for k in ("pq", "sorted", "orc", "fed")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for t in conn.table_names():
+        conn.get_table(t)
+        mt = conn.tables[t]
+        write_table(os.path.join(dirs["pq"], f"{t}.parquet"), mt.arrays,
+                    mt.types, mt.dicts, row_group_rows=SCAN_ROW_GROUP_ROWS)
+    li = conn.tables["lineitem"]
+    order = np.argsort(li.arrays["l_shipdate"], kind="stable")
+    write_table(os.path.join(dirs["sorted"], "lineitem.parquet"),
+                {c: a[order] for c, a in li.arrays.items()}, li.types,
+                li.dicts, row_group_rows=1 << 17)
+    for t in ("lineitem", "orders"):
+        mt = conn.tables[t]
+        export_table_to_orc(dirs["orc"], t, mt.arrays, mt.types, mt.dicts,
+                            stripe_size=ORC_STRIPE_BYTES)
+    na, su, od = (conn.tables[t] for t in ("nation", "supplier", "orders"))
+    pd.DataFrame({
+        "n_nationkey": na.arrays["n_nationkey"],
+        "n_name": na.dicts["n_name"].decode(na.arrays["n_name"]),
+    }).to_csv(os.path.join(dirs["fed"], "nation.csv"), index=False)
+    db = sqlite3.connect(os.path.join(dirs["fed"], "shop.db"))
+    pd.DataFrame({
+        "s_suppkey": su.arrays["s_suppkey"],
+        "s_nationkey": su.arrays["s_nationkey"],
+        "s_acctbal": su.arrays["s_acctbal"] / 100.0,
+    }).to_sql("supplier", db, index=False)
+    db.close()
+    big = big_orders(od)
+    svc = RemoteTableService({"big_orders": pd.DataFrame({
+        "o_orderkey": od.arrays["o_orderkey"][big],
+        "o_totalprice": od.arrays["o_totalprice"][big] / 100.0})})
+    return dirs, svc
+
+
+def big_orders(od):
+    """The orders above BIG_ORDER_QUANTILE of o_totalprice (a mask)."""
+    import numpy as np
+
+    p = od.arrays["o_totalprice"]
+    return p > np.quantile(p, BIG_ORDER_QUANTILE)
+
+
+def files_catalog(fmt, d):
+    """A fresh connector (no split cache, no decode cache) over directory
+    `d`, Parquet or ORC, as the default catalog."""
+    from presto_tpu_torch.catalog.orc import OrcConnector
+    from presto_tpu_torch.catalog.parquet import ParquetConnector
+    from presto_tpu_torch.connector import Catalog
+
+    cat = Catalog()
+    cat.register(fmt, (ParquetConnector if fmt == "parquet"
+                       else OrcConnector)(d), default=True)
+    return cat
+
+
+def mem_catalog(mem, dirs=None, svc=None, hive=None):
+    """The memory connector `mem` as the default catalog, with the
+    federation's connectors (`dirs`, `svc`) or a hive target directory."""
+    from presto_tpu_torch.catalog.jdbc import sqlite_connector
+    from presto_tpu_torch.catalog.localfile import LocalFileConnector
+    from presto_tpu_torch.catalog.parquet import ParquetConnector
+    from presto_tpu_torch.catalog.remote import RemoteServiceConnector
+    from presto_tpu_torch.connector import Catalog
+
+    cat = Catalog()
+    cat.register("tpch", mem, default=True)
+    if hive is not None:
+        os.makedirs(hive)
+        cat.register("hv", ParquetConnector(hive))
+    if dirs is not None:
+        cat.register("files", LocalFileConnector(dirs["fed"]))
+        cat.register("db", sqlite_connector(
+            os.path.join(dirs["fed"], "shop.db")))
+        cat.register("rs", RemoteServiceConnector(svc.url))
+    return cat
+
+
+def scan_oracles(conn):
+    """The hive statements' and the federation's expected results from the
+    generated tables (unscaled integers, dictionary values)."""
+    from decimal import Decimal
+
+    import numpy as np
+    import pandas as pd
+
+    od = conn.tables["orders"]
+    a = od.arrays
+    st = od.dicts["o_orderstatus"]
+
+    def dec(v):
+        return Decimal(int(v)).scaleb(-2)
+
+    f = st.code_of("F")
+    late = a["o_orderdate"] >= _days(1998, 1, 1)
+    rows = []
+    for code, s in enumerate(st.values):
+        m = a["o_orderstatus"] == code
+        both = np.concatenate([a["o_totalprice"][m],
+                               a["o_totalprice"][m & late]])
+        if len(both):
+            rows.append({"o_orderstatus": s, "n": len(both),
+                         "s": dec(both.sum())})
+    out = {
+        "ctas": pd.DataFrame({"rows": [len(a["o_orderkey"])]}),
+        "pruned": pd.DataFrame({
+            "n": [int((a["o_orderstatus"] == f).sum())],
+            "s": [dec(a["o_totalprice"][a["o_orderstatus"] == f].sum())]}),
+        "insert": pd.DataFrame({"rows": [int(late.sum())]}),
+        "read_back": pd.DataFrame(rows),
+    }
+    na, cu, su = (conn.tables[t] for t in ("nation", "customer", "supplier"))
+    names = na.dicts["n_name"].decode(na.arrays["n_name"])
+    by_key = dict(zip(na.arrays["n_nationkey"], names))
+    c = pd.Series([by_key[k] for k in cu.arrays["c_nationkey"]])
+    g = c.value_counts().sort_index()
+    out["csv_nation"] = pd.DataFrame({"n_name": g.index.to_numpy(),
+                                      "n": g.to_numpy()})
+    s = pd.DataFrame({"n_name": [by_key[k] for k in su.arrays["s_nationkey"]],
+                      "b": su.arrays["s_acctbal"] / 100.0})
+    g = s.groupby("n_name", as_index=False).agg(n=("b", "size"),
+                                                b=("b", "sum"))
+    out["sqlite_supplier"] = g
+    li = conn.tables["lineitem"]
+    big = a["o_orderkey"][big_orders(od)]
+    m = np.isin(li.arrays["l_orderkey"], big)
+    out["remote_orders"] = pd.DataFrame({
+        "n": [int(m.sum())], "q": [int(li.arrays["l_quantity"][m].sum())]})
+    return out
+
+
+def run_hive(torch, mem, d, device=None):
+    """The HIVE_STATEMENTS in order into a fresh directory `d`: name ->
+    (frame, seconds, splits pruned)."""
+    from presto_tpu_torch.exec import ExecConfig, LocalRunner
+
+    r = LocalRunner(mem_catalog(mem, hive=d), ExecConfig(), device=device)
+    out = {}
+    for name, sql in HIVE_STATEMENTS:
+        if device is None:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        f = r.run(sql)
+        if device is None:
+            torch.cuda.synchronize()
+        out[name] = (f, time.perf_counter() - t,
+                     r.last_stats.get("scan.orders_p.splits_pruned", 0))
+    return out
+
+
+def scan_units(sf_sql):
+    """(unit, label, catalog kind, sql, config) of the phase's query runs:
+    the four queries over Parquet under both engines, Q6 on the sorted
+    copy with the selective scan on and off, Q1 and Q6 over ORC."""
+    units = []
+    for q in SCAN_QUERIES:
+        for eng in ENGINES:
+            units.append(("parquet", f"{q} {eng}", "pq", sf_sql(q),
+                          {"breaker_engine": eng}))
+    for on in (True, False):
+        units.append(("sorted", f"q6 selective_scan={on}", "sorted",
+                      sf_sql("q6"), {"selective_scan": on}))
+    for q in ("q1", "q6"):
+        units.append(("orc", f"{q} auto", "orc", sf_sql(q), {}))
+    return units
+
+
+def phase_scan(torch, cat, errs):
+    """Scans from files on the TPC-H SF 1 catalog:
+    - set-up (printed apart): the memory catalog's tables written as
+      Parquet, a copy of lineitem sorted by l_shipdate in row groups of
+      2^17, ORC copies of lineitem and orders, CSV, SQLite and a remote
+      table service (`scan_files`), under a `.scan-*` directory of the
+      checkout removed at the end;
+    - Q1, Q6, Q3 and Q18 over Parquet under auto and hash, each equal to
+      its numpy oracle and to the memory catalog's frame of the same run
+      (the 22-query phase's, where it ran; MEMORY_FRAMES):
+      the cold first run (a fresh connector: no device split cache, no host
+      decode cache; the files are in the page cache, written just before),
+      the first run with caches (a new runner over the same connector),
+      the warm median of 3, lineitem rows/s and the busy share (device
+      time of one more run, torch.profiler, over the warm median); the
+      cold run's launches (counts reset just before it, read just after):
+      Q18 under hash must launch group_insert, join_insert and join_probe,
+      Q1 grouped_sums;
+    - Q6 on the sorted copy with the selective scan on and off: equal, and
+      splits_pruned, rows_predecode_filtered and bytes_skipped above 0
+      with it on;
+    - Q1 and Q6 over ORC equal to Parquet's;
+    - a hive-partitioned CTAS of orders, a pruned query, an INSERT and a
+      read back, each against an oracle;
+    - a CSV, a SQLite and a remote-service table each joined with the
+      memory catalog, each against an oracle;
+    - all of it at SF 0.01 on the card against the CPU, and Q1 and Q6 over
+      the chunked export (export_tpch_chunked) at SF 0.01 too.
+    Prints a `scan` JSON line; returns the launches of the cold runs under
+    hash, summed."""
+    import shutil
+    import tempfile
+
+    from presto_tpu_torch.catalog.parquet import export_tpch_chunked
+    from presto_tpu_torch.catalog.tpch import tpch_catalog
+    from presto_tpu_torch.catalog.tpch_queries import QUERIES as TPCH
+    from presto_tpu_torch.exec import ExecConfig, LocalRunner
+    from presto_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix=".scan-", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    conn = cat.connectors["tpch"]
+
+    def sf_sql(q, sf=SF):
+        return at_scale(q, TPCH[q], sf)
+
+    svc = small_svc = None
+    try:
+        dirs, svc = scan_files(conn, root)
+        setup_s = time.perf_counter() - t0
+        n_lineitem = conn.tables["lineitem"].num_rows
+        oracles = {q: oracle(conn, q) for q in ("q1", "q3", "q6")}
+        oracles["q18"] = oracle22(conn, "q18")
+        oracles.update(scan_oracles(conn))
+        print(f"scan: set-up {setup_s:.1f} s (Parquet, sorted copy, ORC, "
+              f"CSV, SQLite, remote service at SF {SF}); oracles ready "
+              f"{time.perf_counter() - t0 - setup_s:.1f} s later")
+        summary = []
+        hash_launches = {}
+        frames = {}  # (unit, label) -> the first run's frame
+        t_queries = time.perf_counter()
+        for unit, label, kind, sql, cfg in scan_units(sf_sql):
+            q = label.split()[0]
+            name = f"scan {unit} {label}"
+            cfg = ExecConfig(**cfg)
+            fmt = "orc" if kind == "orc" else "parquet"
+            r = LocalRunner(files_catalog(fmt, dirs[kind]), cfg)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = r.run(sql)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t1
+            launches = {k: v for k, v in launch_counts().items() if v}
+            stats = {c: r.last_stats.get(f"scan.lineitem.{c}", 0)
+                     for c in SCAN_COUNTERS}
+            frames[(unit, label)] = out
+            check_oracle(out, oracles[q], q, f"{name} oracle")
+            row = {"unit": unit, "run": label, "rows": len(out),
+                   "cold_ms": cold * 1e3, "launches": launches,
+                   "stats": stats}
+            note = ""
+            if unit == "parquet":
+                eng = cfg.breaker_engine
+                if eng == "hash":
+                    for k, v in launches.items():
+                        hash_launches[k] = hash_launches.get(k, 0) + v
+                if q == "q18" and eng == "hash":
+                    for k in ("join_insert", "join_probe", "group_insert"):
+                        require(launches.get(k, 0) > 0,
+                                f"{name}: {k} did not launch")
+                mem = MEMORY_FRAMES.get((sql, eng))
+                if mem is None:
+                    mem = LocalRunner(cat, ExecConfig(
+                        breaker_engine=eng)).run(sql)
+                how = frames_agree(out, mem, ORDER_KEYS[q],
+                                   f"{name} vs the memory catalog")
+                r2 = LocalRunner(r.catalog, cfg)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                again = r2.run(sql)
+                torch.cuda.synchronize()
+                cached = time.perf_counter() - t1
+                frames_agree(again, out, ORDER_KEYS[q], f"{name} cached")
+                again, warm = warm_runs(torch, r2, sql)
+                frames_agree(again, out, ORDER_KEYS[q], f"{name} warm")
+                dev = device_profile(torch, lambda: r2.run(sql))
+                row.update({"cached_ms": cached * 1e3, "warm_ms": warm * 1e3,
+                            "lineitem_rows_per_s": n_lineitem / warm,
+                            "busy": dev["device_ms"] / (warm * 1e3), **dev})
+                note = (f"; {how} to the memory catalog; cold first run "
+                        f"{cold * 1e3:.1f} ms ({n_lineitem / cold:.4g} "
+                        f"lineitem rows/s), first run with caches "
+                        f"{cached * 1e3:.1f} ms, warm median of 3 "
+                        f"{warm * 1e3:.1f} ms ({n_lineitem / warm:.4g} "
+                        f"lineitem rows/s); device time of one more run "
+                        f"{dev['device_ms']:.2f} ms, busy "
+                        f"{dev['device_ms'] / warm / 10:.1f} %")
+            elif unit == "sorted":
+                if cfg.selective_scan:
+                    for c in SCAN_COUNTERS:
+                        require(stats[c] > 0, f"{name}: {c} is {stats[c]}")
+                else:
+                    frames_equal(out, frames[("sorted",
+                                              "q6 selective_scan=True")],
+                                 f"{name} vs selective_scan=True")
+                    note = "; equal to the run with it on"
+                note += f"; cold first run {cold * 1e3:.1f} ms"
+            else:
+                frames_equal(out, frames[("parquet", f"{q} auto")],
+                             f"{name} vs Parquet")
+                note = (f"; equal to Parquet's; cold first run "
+                        f"{cold * 1e3:.1f} ms")
+            summary.append(row)
+            print(f"{name} SF {SF}: {len(out)} rows, equal to the oracle"
+                  f"{note}; launches {json.dumps(launches)}; "
+                  f"{json.dumps(stats)}")
+        q1_launched = [u["run"] for u in summary if u["unit"] == "parquet"
+                       and u["run"].startswith("q1 ")
+                       and u["launches"].get("grouped_sums", 0)]
+        require(q1_launched, "scan parquet q1: grouped_sums did not launch")
+        queries_s = time.perf_counter() - t_queries
+
+        t_units = time.perf_counter()
+        hive = run_hive(torch, conn, os.path.join(root, "hive"))
+        for label, (f, sec, pruned) in hive.items():
+            columns_equal(f, oracles[label], f"scan hive {label}")
+            summary.append({"unit": "hive", "run": label, "rows": len(f),
+                            "ms": sec * 1e3, "splits_pruned": pruned})
+            print(f"scan hive {label} SF {SF}: {len(f)} rows, equal to the "
+                  f"oracle; {sec * 1e3:.1f} ms; splits pruned {pruned}")
+        require(hive["pruned"][2] > 0, "scan hive pruned: no split pruned")
+        fed = LocalRunner(mem_catalog(conn, dirs, svc), ExecConfig())
+        for label, sql in FEDERATION.items():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            f = fed.run(sql)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+            columns_equal(f, oracles[label], f"scan federation {label}",
+                          rtol=FED_RTOL)
+            summary.append({"unit": "federation", "run": label,
+                            "rows": len(f), "ms": sec * 1e3})
+            print(f"scan federation {label} SF {SF}: {len(f)} rows, equal "
+                  f"to the oracle; {sec * 1e3:.1f} ms")
+        units_s = time.perf_counter() - t_units
+
+        t_small = time.perf_counter()
+        small = tpch_catalog(SMALL_SF).connectors["tpch"]
+        sdirs, small_svc = scan_files(small, os.path.join(root, "small"))
+        export_tpch_chunked(os.path.join(root, "chunked"), SMALL_SF,
+                            orders_per_chunk=6000)
+        sdirs["chunked"] = os.path.join(root, "chunked")
+        hows = {}
+        runs = scan_units(lambda q: sf_sql(q, SMALL_SF))
+        runs += [("chunked", f"{q} {eng}", "chunked", sf_sql(q, SMALL_SF),
+                  {"breaker_engine": eng})
+                 for q in ("q1", "q6") for eng in ENGINES]
+        for unit, label, kind, sql, cfg in runs:
+            fmt = "orc" if kind == "orc" else "parquet"
+            outs = [LocalRunner(files_catalog(fmt, sdirs[kind]),
+                                ExecConfig(**cfg), device=dev).run(sql)
+                    for dev in (None, "cpu")]
+            hows[f"{unit} {label}"] = frames_agree(
+                outs[0], outs[1], ORDER_KEYS[label.split()[0]],
+                f"scan {unit} {label} SF {SMALL_SF} card vs CPU")
+        on_card, on_cpu = (run_hive(torch, small, os.path.join(root, f"h{i}"),
+                                    dev)
+                           for i, dev in enumerate((None, "cpu")))
+        for label in on_card:
+            frames_equal(on_card[label][0], on_cpu[label][0],
+                         f"scan hive {label} SF {SMALL_SF} card vs CPU")
+            hows[f"hive {label}"] = "equal"
+        fed_runs = [LocalRunner(mem_catalog(small, sdirs, small_svc),
+                                ExecConfig(), device=dev)
+                    for dev in (None, "cpu")]
+        for label, sql in FEDERATION.items():
+            a, b = (r.run(sql) for r in fed_runs)
+            columns_equal(a, b, f"scan federation {label} SF {SMALL_SF} "
+                          "card vs CPU", rtol=FED_RTOL)
+            hows[f"federation {label}"] = "equal"
+        small_s = time.perf_counter() - t_small
+        print(f"scan SF {SMALL_SF}: card against CPU for {len(hows)} runs "
+              f"in {small_s:.1f} s: {json.dumps(hows)}")
+    finally:
+        for s in (svc, small_svc):
+            if s is not None:
+                s.close()
+        shutil.rmtree(root)
+    seconds = {"setup": setup_s, "queries": queries_s, "hive_federation":
+               units_s, f"SF {SMALL_SF}": small_s,
+               "phase": time.perf_counter() - t0}
+    print(f"scan: phase took {seconds['phase']:.1f} s (set-up "
+          f"{setup_s:.1f} s)")
+    print(json.dumps({"scan": summary, "seconds": seconds}))
+    return hash_launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: TPC-DS
 
 # the output columns of each TPC-DS query's ORDER BY (None: one row, or an
@@ -3502,6 +3962,7 @@ def main() -> int:
     phase_surface(torch, cat, errs)
     st_launches = phase_structural(torch, cat, errs)
     mem_launches = phase_memory(torch, cat, errs)
+    scan_launches = phase_scan(torch, cat, errs)
     del cat
     ds_launches, ds_timed = phase_tpcds(torch, errs)
     rows = phase_timing(torch, inputs, timed, ds_timed, errs)
@@ -3513,6 +3974,7 @@ def main() -> int:
             "tpcds_launches": ds_launches.get(name, 0),
             "structural_launches": st_launches.get(name, 0),
             "memory_launches": mem_launches.get(name, 0),
+            "scan_launches": scan_launches.get(name, 0),
             "max_abs_err": errs[name],
             "ms": r["ms_warm"] if r["ms_cold"] is None else r["ms_cold"],
             "cold": r["ms_cold"] is not None, "ms_warm": r["ms_warm"],

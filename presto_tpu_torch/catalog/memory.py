@@ -405,36 +405,67 @@ class MemoryTable:
         )
 
 
-def batch_bytes(b: Batch) -> int:
-    """Device bytes held by a batch's tensors."""
-    n = b.live.numel() * b.live.element_size()
-    for c in b.columns:
-        for t in c.planes():
-            if t is not None:
-                n += t.numel() * t.element_size()
-    return n
-
-
-class MemoryConnector(Connector):
-    """Tables from host arrays, read into device-resident batches. Split
-    reads are cached per (split, columns, capacity, device) in a bounded
-    LRU of device bytes; batches are never mutated, so sharing is safe."""
+class DeviceSplitCache:
+    """Device-resident split cache mixin: scans of the same table slice
+    re-serve the already-uploaded device tensors instead of re-staging
+    host→device per query (host→device is the dominant scan cost). A
+    bounded LRU of device bytes (memory.batch_device_bytes, every plane),
+    keyed by (table, part, total, columns, capacity, device); batches are
+    never mutated, so sharing is safe. Subclasses implement
+    `_read_split_uncached(split, columns, device, capacity)`."""
 
     split_cache_bytes: int = 6 << 30
 
-    def __init__(self, name: str = "memory"):
-        self.name = name
-        self.tables: Dict[str, MemoryTable] = {}
+    def _init_split_cache(self):
         self._split_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self._split_cache_used = 0
+        self._cache_epoch = 0
         self._split_cache_lock = threading.Lock()
 
     def invalidate_cache(self, table: Optional[str] = None):
         with self._split_cache_lock:
+            self._cache_epoch += 1
             for k in [k for k in self._split_cache
                       if table is None or k[0] == table]:
                 _, nbytes = self._split_cache.pop(k)
                 self._split_cache_used -= nbytes
+
+    def read_split(self, split: Split, columns: Sequence[str],
+                   device: torch.device,
+                   capacity: Optional[int] = None) -> Batch:
+        from presto_tpu_torch.memory import batch_device_bytes
+
+        key = (split.table, split.part, split.total, tuple(columns),
+               capacity, str(device))
+        with self._split_cache_lock:
+            epoch = self._cache_epoch
+            hit = self._split_cache.get(key)
+            if hit is not None:
+                self._split_cache.move_to_end(key)
+                return hit[0]
+        b = self._read_split_uncached(split, columns, device, capacity)
+        nbytes = batch_device_bytes(b)
+        if nbytes <= self.split_cache_bytes:
+            with self._split_cache_lock:
+                # an invalidation while we were reading means `b` may be
+                # stale — don't resurrect it into the fresh cache
+                if self._cache_epoch == epoch and key not in self._split_cache:
+                    self._split_cache[key] = (b, nbytes)
+                    self._split_cache_used += nbytes
+                    while self._split_cache_used > self.split_cache_bytes:
+                        _, (_, freed) = self._split_cache.popitem(last=False)
+                        self._split_cache_used -= freed
+        return b
+
+
+class MemoryConnector(DeviceSplitCache, Connector):
+    """Tables from host arrays, read into device-resident batches through
+    the device split cache."""
+
+    def __init__(self, name: str = "memory"):
+        self.name = name
+        self.tables: Dict[str, MemoryTable] = {}
+        self._init_split_cache()
 
     def add_table(self, name: str, data, types=None, primary_key=None,
                   index_keys=None):
@@ -640,28 +671,6 @@ class MemoryConnector(Connector):
 
     def splits(self, handle: TableHandle, desired: int = 1) -> List[Split]:
         return [Split(handle.name, i, desired) for i in range(desired)]
-
-    def read_split(self, split: Split, columns: Sequence[str],
-                   device: torch.device,
-                   capacity: Optional[int] = None) -> Batch:
-        key = (split.table, split.part, split.total, tuple(columns),
-               capacity, str(device))
-        with self._split_cache_lock:
-            hit = self._split_cache.get(key)
-            if hit is not None:
-                self._split_cache.move_to_end(key)
-                return hit[0]
-        b = self._read_split_uncached(split, columns, device, capacity)
-        nbytes = batch_bytes(b)
-        if nbytes <= self.split_cache_bytes:
-            with self._split_cache_lock:
-                if key not in self._split_cache:
-                    self._split_cache[key] = (b, nbytes)
-                    self._split_cache_used += nbytes
-                    while self._split_cache_used > self.split_cache_bytes:
-                        _, (_, freed) = self._split_cache.popitem(last=False)
-                        self._split_cache_used -= freed
-        return b
 
     def _read_split_uncached(self, split: Split, columns: Sequence[str],
                              device: torch.device,

@@ -118,9 +118,34 @@ class Connector:
         self,
         split: Split,
         columns: Sequence[str],
+        device,
         capacity: Optional[int] = None,
     ) -> Batch:
         raise NotImplementedError
+
+    def split_stats(self, handle: TableHandle, split: Split):
+        """Per-split min/max/null-count statistics (scan.pruning.SplitStats)
+        in the STORAGE value domain, or None when the connector has no
+        stats for this split. Drives the default `prune_splits` so
+        eliminated splits are never opened (the reference's stripe/row-group
+        skipping via TupleDomain + file statistics)."""
+        return None
+
+    def prune_splits(self, handle: TableHandle, splits: Sequence[Split],
+                     min_max: Dict[str, tuple]) -> List[Split]:
+        """Drop splits whose statistics prove no row can match `min_max`
+        (storage-domain inclusive bounds). Connectors with a cheaper native
+        path (parquet footers) override this wholesale; connectors without
+        stats inherit a no-op via split_stats → None."""
+        from presto_tpu_torch.scan.pruning import split_prunable
+
+        keep = []
+        for s in splits:
+            st = self.split_stats(handle, s)
+            if st is not None and split_prunable(st, min_max):
+                continue
+            keep.append(s)
+        return keep
 
     # -- write path (reference: ConnectorMetadata.beginCreateTable/
     # beginInsert + ConnectorPageSink; connectors that stay read-only

@@ -52,19 +52,27 @@ def batch_from_arrays(names: Sequence[str], types: Sequence[Union[Type, str]],
                  {k: _dictionary(d) for k, d in dicts.items()})
 
 
-def batch_to_arrays(b: Batch) -> Dict[str, object]:
-    """The reverse of batch_from_arrays: numpy planes, type names and
-    dictionary values."""
-    def host(t):
-        return None if t is None else t.cpu().numpy()
+def _host(a) -> Optional[np.ndarray]:
+    """A plane of either package as numpy: a torch tensor through the CPU,
+    anything else (a JAX array) through its array interface."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.cpu().numpy()
+    return np.asarray(a)
 
+
+def batch_to_arrays(b) -> Dict[str, object]:
+    """The reverse of batch_from_arrays: numpy planes at the batch's
+    capacity, type names and dictionary values. Takes a Batch of either
+    package, so the two compare array for array."""
     return {
         "names": list(b.names),
         "types": [str(t) for t in b.types],
-        "values": [host(c.values) for c in b.columns],
-        "validity": [host(c.validity) for c in b.columns],
-        "hi": [host(c.hi) for c in b.columns],
-        "live": host(b.live),
+        "values": [_host(c.values) for c in b.columns],
+        "validity": [_host(c.validity) for c in b.columns],
+        "hi": [_host(c.hi) for c in b.columns],
+        "live": _host(b.live),
         "dicts": {k: np.asarray(d.values) for k, d in b.dicts.items()},
     }
 

@@ -47,7 +47,10 @@ adaptive execution and history-based optimization.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import itertools
+import queue
+import threading
 from types import SimpleNamespace
 from typing import (
     Callable,
@@ -158,6 +161,9 @@ from presto_tpu_torch.plan.nodes import (
     Unnest,
     Window,
 )
+from presto_tpu_torch.scan import metrics as _scan_metrics
+from presto_tpu_torch.scan.adaptive import AdaptiveFilterOrder
+from presto_tpu_torch.scan.filters import filters_from_constraints
 from presto_tpu_torch.spiller import (
     SpillFile,
     SpillLimitExceeded,
@@ -216,6 +222,13 @@ class ExecConfig:
     # eligible chain, "binary" runs the pass and always declines, "off"
     # skips it
     join_mode: str = "auto"
+    # Aria selective scan (scan/): constrained scans on connectors with a
+    # read_split_selective path filter rows during host decode and upload
+    # only survivors. Off → decode everything and filter on the device
+    selective_scan: bool = True
+    # background split prefetch depth: a host thread decodes and uploads
+    # splits i+1..i+depth while the device computes split i. 0 disables
+    scan_prefetch: int = 2
 
 
 class ExecContext:
@@ -640,9 +653,113 @@ def _scan_batches(scan: TableScan, ctx: ExecContext) -> Iterator[Batch]:
                 return
     nsplits = max(1, -(-nrows // ctx.config.batch_rows))
     cap = round_up_capacity(min(nrows, ctx.config.batch_rows) or 1)
-    for split in conn.splits(handle, nsplits):
-        b = conn.read_split(split, columns, ctx.device, capacity=cap)
-        yield b.rename(symbols)
+    splits = conn.splits(handle, nsplits)
+    read_split = conn.read_split
+    bounds = (_constraints_to_storage(scan, handle) if scan.constraints
+              else {})
+    if bounds:
+        # split elimination by min/max statistics (row groups, stripes,
+        # hive partition directories)
+        before = len(splits)
+        splits = conn.prune_splits(handle, splits, bounds)
+        ctx.stats[f"scan.{scan.table}.splits_pruned"] = before - len(splits)
+        _scan_metrics.record("splits_pruned", before - len(splits))
+        if hasattr(conn, "read_split_constrained"):
+            # full predicate pushdown: the connector evaluates the ranges
+            # at the source (a remote service, a SQL WHERE)
+            def read_split(split, columns, device, capacity=None):
+                return conn.read_split_constrained(
+                    split, columns, device, capacity=capacity,
+                    constraints=bounds)
+    if (scan.constraints and ctx.config.selective_scan
+            and hasattr(conn, "read_split_selective")):
+        # Aria selective scan: the constraints become host value filters
+        # (scan/filters.py); filter columns decode first, the cascade
+        # shrinks a selection vector in adaptive order, and payload columns
+        # decode and upload only for survivors. The exact device filter
+        # above the scan still runs (host filters are conservative
+        # supersets), so results never depend on this layer.
+        filters = filters_from_constraints(scan.constraints, handle)
+        if filters:
+            adaptive = AdaptiveFilterOrder()
+            prefix = f"scan.{scan.table}"
+
+            def count(name, delta):
+                ctx.bump(f"{prefix}.{name}", delta)
+                _scan_metrics.record(name, delta)
+
+            def read_split(split, columns, device, capacity=None):
+                return conn.read_split_selective(
+                    split, columns, filters, device, capacity=capacity,
+                    adaptive=adaptive, counters=count)
+    depth = ctx.config.scan_prefetch
+    if depth <= 0 or len(splits) <= 1:
+        for split in splits:
+            yield read_split(split, columns, ctx.device,
+                             capacity=cap).rename(symbols)
+        return
+    yield from _prefetched(
+        lambda split: read_split(split, columns, ctx.device, capacity=cap),
+        splits, depth, symbols)
+
+
+def _prefetched(read, splits, depth: int, symbols) -> Iterator[Batch]:
+    """A host thread decodes and uploads splits ahead of the consumer
+    through a bounded queue (memory stays O(depth) batches); a read error
+    is raised on the consumer, and an early exit (LIMIT, an error) stops
+    the producer after its current read and drains the queue."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+
+    def producer():
+        try:
+            for split in splits:
+                if stop.is_set():
+                    break
+                q.put(read(split))
+            q.put(done)
+        except BaseException as e:  # surface read errors on the consumer
+            q.put(e)
+
+    t = threading.Thread(target=producer, daemon=True, name="scan-prefetch")
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item.rename(symbols)
+    finally:
+        stop.set()
+        while t.is_alive():
+            try:
+                item = q.get(timeout=0.1)
+                if item is done or isinstance(item, BaseException):
+                    break
+            except queue.Empty:
+                continue
+
+
+def _constraints_to_storage(scan: TableScan, handle):
+    """Engine-level (lo, hi) bounds → the connector's storage value domain
+    (dates become datetime.date for parquet date32 statistics)."""
+    col_types = {c.name: c.type for c in handle.columns}
+    out = {}
+    for col, (lo, hi) in scan.constraints.items():
+        t = col_types.get(col)
+        if t is None:
+            continue
+        if t.name == "date":
+            def conv(d):
+                return (None if d is None
+                        else datetime.date.fromordinal(719163 + int(d)))
+            out[col] = (conv(lo), conv(hi))
+        else:
+            out[col] = (lo, hi)
+    return out
 
 
 # -- aggregation --------------------------------------------------------------

@@ -64,3 +64,20 @@ def test_guard_covers_memory_modules():
                  "presto_tpu_torch/ops/radix.py",
                  "presto_tpu_torch/plan/multiway.py"):
         assert path in files, path
+
+
+def test_guard_covers_scan_modules():
+    """The scan layer and the file, SQLite and remote connectors are among
+    the files guarded above."""
+    files = set(_port_files())
+    for path in ("presto_tpu_torch/scan/filters.py",
+                 "presto_tpu_torch/scan/adaptive.py",
+                 "presto_tpu_torch/scan/pruning.py",
+                 "presto_tpu_torch/scan/selective.py",
+                 "presto_tpu_torch/scan/metrics.py",
+                 "presto_tpu_torch/catalog/parquet.py",
+                 "presto_tpu_torch/catalog/orc.py",
+                 "presto_tpu_torch/catalog/localfile.py",
+                 "presto_tpu_torch/catalog/jdbc.py",
+                 "presto_tpu_torch/catalog/remote.py"):
+        assert path in files, path
