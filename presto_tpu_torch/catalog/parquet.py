@@ -23,6 +23,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -295,15 +297,69 @@ class ParquetConnector(DeviceSplitCache, Connector):
         except OSError:
             self._invalidate_table(name)
 
-    # -- part-file tables: a <name>.parts/ directory of part-*.parquet
-    # files (the JAX package's scaled writers make them; the port reads
-    # them and appends to them); every (file, row group) is a split.
+    # -- scaled writers (SCALED_WRITER_DISTRIBUTION analog) ---------------
+    # A table is either one <name>.parquet file or a <name>.parts/
+    # directory of part-*.parquet files written concurrently by writer
+    # tasks into <name>.parts.tmp/ and committed by one rename; readers
+    # treat every (file, row group) as a split.
 
-    def parts_dir(self, name: str) -> str:
-        return os.path.join(self.directory, f"{name}.parts")
+    # a staging directory nothing has written to for this long belongs to
+    # a writer that died, and a new CTAS of the name reclaims it
+    stale_staging_s: float = 3600.0
 
-    def _append_part(self, name: str, part_id: str, batches) -> int:
-        """One more part file in a part-file table (INSERT's append)."""
+    def supports_scaled_writes(self) -> bool:
+        return True
+
+    def parts_dir(self, name: str, staging: bool = False) -> str:
+        return os.path.join(self.directory,
+                            f"{name}.parts.tmp" if staging else f"{name}.parts")
+
+    def begin_scaled_create(self, name: str, if_not_exists: bool = False):
+        if self._table_exists(name):
+            if if_not_exists:
+                return False
+            raise ValueError(f"table already exists: {name}")
+        staging = self.parts_dir(name, staging=True)
+        for attempt in (0, 1):
+            try:
+                # exclusive create: two racing CTAS must not share a
+                # staging directory (mkdir is the atomic mutual exclusion,
+                # the role of HiveMetadata begin/finishCreate)
+                os.makedirs(staging, exist_ok=False)
+                return True
+            except FileExistsError:
+                # a writer killed mid-CTAS never aborts its staging:
+                # reclaim it when nothing has written to it for a while
+                try:
+                    newest = max(
+                        (os.path.getmtime(os.path.join(staging, f))
+                         for f in os.listdir(staging)),
+                        default=os.path.getmtime(staging))
+                except OSError:
+                    continue  # lost a race with a finishing writer
+                if (attempt == 0
+                        and time.time() - newest > self.stale_staging_s):
+                    shutil.rmtree(staging, ignore_errors=True)
+                    continue
+                raise ValueError(
+                    f"table {name!r} is being created concurrently"
+                ) from None
+        return True
+
+    def finish_scaled_create(self, name: str):
+        """Commit: the staging directory renames into place atomically."""
+        os.replace(self.parts_dir(name, staging=True),
+                   self.parts_dir(name))
+        self._invalidate_table(name)
+
+    def abort_scaled_create(self, name: str):
+        shutil.rmtree(self.parts_dir(name, staging=True),
+                      ignore_errors=True)
+
+    def write_part(self, name: str, part_id: str, batches,
+                   staging: bool = True) -> int:
+        """One part file of a table: a scaled writer task's, into the
+        staging directory, or INSERT's append to a part-file table."""
         names, types, data = _batches_to_host(batches)
         if any(isinstance(t, (ArrayType, MapType)) for t in types):
             raise NotImplementedError(
@@ -315,7 +371,8 @@ class ParquetConnector(DeviceSplitCache, Connector):
         arrays, schema = _to_arrow_columns(plain, dict(zip(names, types)),
                                            dicts, validity, his)
         tbl = pa.Table.from_arrays(arrays, schema=schema)
-        path = os.path.join(self.parts_dir(name), f"part-{part_id}.parquet")
+        path = os.path.join(self.parts_dir(name, staging=staging),
+                            f"part-{part_id}.parquet")
         pq.write_table(tbl, path + ".tmp", row_group_size=1 << 20,
                        use_dictionary=True, compression="zstd")
         os.replace(path + ".tmp", path)
@@ -1004,8 +1061,8 @@ class ParquetConnector(DeviceSplitCache, Connector):
                     raise ValueError(
                         f"INSERT schema mismatch: {[str(t) for t in types]}"
                         f" vs {existing}")
-                n = self._append_part(name, f"ins-{uuid.uuid4().hex[:8]}",
-                                      batches)
+                n = self.write_part(name, f"ins-{uuid.uuid4().hex[:8]}",
+                                    batches, staging=False)
                 self._invalidate_table(name)
                 return n
             raise KeyError(f"table not found: {name}")

@@ -18,11 +18,12 @@ from typing import Optional, Union
 import torch
 
 from presto_tpu_torch import default_device
-from presto_tpu_torch.batch import Batch, Column
+from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.connector import Catalog
 from presto_tpu_torch.exec.runtime import (
     ExecConfig,
     ExecContext,
+    count_batch,
     mark_breaker_engines,
     run_plan,
 )
@@ -32,7 +33,6 @@ from presto_tpu_torch.plan.nodes import QueryPlan, plan_to_string
 from presto_tpu_torch.plan.optimizer import optimize
 from presto_tpu_torch.sql import ast
 from presto_tpu_torch.sql.parser import parse_sql
-from presto_tpu_torch.types import BIGINT
 
 _DDL_NODES = (ast.CreateTableAs, ast.Insert, ast.DropTable, ast.CreateTable,
               ast.CreateView, ast.DropView, ast.Delete, ast.Truncate)
@@ -48,29 +48,22 @@ def execute_data_definition(stmt, catalog: Catalog, run_query_fn,
     result is one `rows` row on `device`. `run_query_fn` runs a query AST
     (a CTAS or INSERT source, or DELETE's rewrite) to a Batch."""
 
-    def count_batch(rows: int) -> Batch:
-        vals = torch.zeros(128, dtype=torch.int64, device=device)
-        vals[0] = rows
-        live = torch.zeros(128, dtype=torch.bool, device=device)
-        live[0] = True
-        return Batch(["rows"], [BIGINT], [Column(vals)], live, {})
-
     if isinstance(stmt, ast.CreateView):
         name = stmt.name[-1]
         if name in catalog.views and not stmt.or_replace:
             raise ValueError(f"view already exists: {name}")
         catalog.views[name] = stmt.query
-        return count_batch(0)
+        return count_batch(0, device)
     if isinstance(stmt, ast.DropView):
         if stmt.name[-1] not in catalog.views and not stmt.if_exists:
             raise KeyError(f"view not found: {stmt.name[-1]}")
         catalog.views.pop(stmt.name[-1], None)
-        return count_batch(0)
+        return count_batch(0, device)
 
     conn, tname = catalog.connector_for(stmt.name)
     if isinstance(stmt, ast.DropTable):
         conn.drop_table(tname, if_exists=stmt.if_exists)
-        return count_batch(0)
+        return count_batch(0, device)
     if isinstance(stmt, ast.CreateTable):
         from presto_tpu_torch.types import GEOMETRY, parse_type
 
@@ -83,24 +76,25 @@ def execute_data_definition(stmt, catalog: Catalog, run_query_fn,
                 "GEOMETRY columns cannot be stored — keep WKT varchar and "
                 "parse with ST_GeometryFromText")
         conn.create_empty(tname, cols, if_not_exists=stmt.if_not_exists)
-        return count_batch(0)
+        return count_batch(0, device)
     if isinstance(stmt, ast.Truncate):
         before = int(conn.get_table(tname).row_count or 0)
         conn.truncate_table(tname)
-        return count_batch(before)
+        return count_batch(before, device)
     if isinstance(stmt, ast.Delete):
         # the rows kept are those where the predicate is not TRUE (a NULL
         # predicate keeps its row)
         before = int(conn.get_table(tname).row_count or 0)
         if stmt.where is None:
             conn.truncate_table(tname)
-            return count_batch(before)
+            return count_batch(before, device)
         keep = ast.UnaryOp("not", ast.FunctionCall(
             "coalesce", [stmt.where, ast.Literal(False, "boolean")]))
         q = ast.Query(select=[ast.SelectItem(ast.Star(), None)],
                       from_=ast.Table(stmt.name), where=keep)
         conn.replace_table_from(tname, [run_query_fn(q)])
-        return count_batch(before - int(conn.get_table(tname).row_count or 0))
+        return count_batch(
+            before - int(conn.get_table(tname).row_count or 0), device)
 
     result = run_query_fn(stmt.query)
     if isinstance(stmt, ast.CreateTableAs):
@@ -109,7 +103,7 @@ def execute_data_definition(stmt, catalog: Catalog, run_query_fn,
                                    properties=stmt.properties or None)
     else:
         n = conn.insert_into(tname, [result])
-    return count_batch(n)
+    return count_batch(n, device)
 
 
 class LocalRunner:

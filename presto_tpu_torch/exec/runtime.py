@@ -12,8 +12,8 @@ overflow.
 
 Operators: TableScan (also with no column read), OneRow (SELECT without
 FROM, VALUES), Filter, Project, HostProject (cast to varchar and
-date_format, formatted on the host at the query root), Aggregate (single
-step; sum, avg, count, count(*), count_if, min, max, arbitrary,
+date_format, formatted on the host at the query root), Aggregate (single,
+partial and final steps; sum, avg, count, count(*), count_if, min, max, arbitrary,
 bool_and/bool_or, checksum, geometric_mean, the variance family,
 covar_pop/covar_samp/corr, and none for DISTINCT; global, small-domain,
 sort- and hash-engine grouping; count/sum/avg DISTINCT beside other
@@ -28,7 +28,12 @@ NestedLoopJoin (cross and non-equi inner joins), Unnest [WITH
 ORDINALITY], SetOp (UNION [ALL], INTERSECT [ALL], EXCEPT [ALL]; with it
 GROUPING SETS, ROLLUP and CUBE, which the planner lowers to UNION ALL),
 Window, Sort and TopN, Limit, Output, and uncorrelated scalar subqueries
-bound as constants, and MultiwayJoin (plan/multiway.py's N-ary join).
+bound as constants, MultiwayJoin (plan/multiway.py's N-ary join), and in
+a distributed task RemoteSource (pages pulled through the exchange,
+`ctx.remote_sources`) and TableWriter (a scaled writer's part). A join of
+two tables bucketed alike on its keys (`HashJoin.colocated`) runs bucket
+by bucket (grouped execution: `ctx.lifespan`), and so does an
+aggregation whose keys cover such a join's.
 ARRAY and MAP columns ride through every operator with their planes
 (batch.Column). Anything else raises NotImplementedError naming it.
 Statements other than queries run in exec/runner.py.
@@ -154,10 +159,12 @@ from presto_tpu_torch.plan.nodes import (
     PlanNode,
     Project,
     QueryPlan,
+    RemoteSource,
     SemiJoin,
     SetOp,
     Sort,
     TableScan,
+    TableWriter,
     Unnest,
     Window,
 )
@@ -229,21 +236,60 @@ class ExecConfig:
     # background split prefetch depth: a host thread decodes and uploads
     # splits i+1..i+depth while the device computes split i. 0 disables
     scan_prefetch: int = 2
+    # query-level elastic retry (the reference's RetryPolicy.QUERY): on a
+    # failed or unreachable worker the coordinator re-probes the cluster,
+    # drops dead nodes and runs the whole query again this many times
+    query_retry_count: int = 1
+    # stage scheduling (AllAtOnceExecutionPolicy / PhasedExecutionSchedule):
+    # "phased" starts probe-side stages only once their join builds finish
+    execution_policy: str = "all-at-once"
+    # a colocated-join fragment runs one task a lifespan (bucket) in a
+    # gated phase; a worker lost mid-phase re-runs only its unfinished
+    # buckets on the survivors
+    recoverable_grouped_execution: bool = False
+    # phased mode: how long one build phase may run before the query fails
+    phase_wait_timeout_s: float = 600.0
+    # coordinator-side split placement by rendezvous hash (soft affinity):
+    # a split lands on the same worker across queries. Off → static
+    # task_index::n_tasks striding
+    split_affinity: bool = True
 
 
 class ExecContext:
     def __init__(self, catalog: Catalog, config: ExecConfig,
-                 device: torch.device):
+                 device: torch.device, memory_pool: Optional[MemoryPool] = None,
+                 spill_manager: Optional[SpillManager] = None):
         self.catalog = catalog
         self.config = config
         self.device = device
         self.stats: Dict[str, float] = {}
-        self.memory_pool = MemoryPool(
+        # distributed task context (set by the worker; LocalRunner keeps
+        # one task): without an assignment this task reads
+        # splits[task_index::n_tasks] of every scanned table
+        self.task_index: int = 0
+        self.n_tasks: int = 1
+        # coordinator-assigned split ordinals per table (soft affinity),
+        # with the coordinator's enumeration count per table: a mismatch
+        # at scan time means the table changed underneath the plan
+        self.split_assignment: Optional[Dict[str, List[int]]] = None
+        self.split_counts: Optional[Dict[str, int]] = None
+        # grouped (lifespan) execution: scans of bucketed tables read only
+        # this bucket's splits while a colocated join or its aggregation
+        # sweeps the task's buckets; `lifespans` is the sweep's bucket count
+        self.lifespan: Optional[int] = None
+        self.lifespans: Optional[int] = None
+        # fragment_id -> iterator of the batches pulled from the exchange
+        self.remote_sources: Optional[Callable[[int], Iterator[Batch]]] = None
+        # a worker shares its pool and spill manager between its tasks
+        self.memory_pool = memory_pool or MemoryPool(
             config.memory_pool_bytes,
             revoke_threshold=config.memory_revoking_threshold,
             revoke_target=config.memory_revoking_target)
-        self.spill_manager = SpillManager(config.spill_dir,
-                                          config.spill_dir_budget_bytes)
+        self.spill_manager = spill_manager or SpillManager(
+            config.spill_dir, config.spill_dir_budget_bytes)
+        if (config.spill_dir_budget_bytes is not None
+                and self.spill_manager.budget_bytes is None):
+            self.spill_manager.budget_bytes = config.spill_dir_budget_bytes
         # every spiller and spill file an operator opens, so teardown can
         # close and unlink them even when the operator died mid-spill
         self.spill_resources: List = []
@@ -493,8 +539,33 @@ def _execute_base(base: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
     if isinstance(base, HostProject):
         yield from _execute_host_project(base, ctx)
         return
+    if isinstance(base, RemoteSource):
+        if ctx.remote_sources is None:
+            raise RuntimeError("RemoteSource outside a distributed task")
+        yield from ctx.remote_sources(base.fragment_id)
+        return
+    if isinstance(base, TableWriter):
+        # scaled writer: this task writes its stream as one part and emits
+        # its row count (TableWriterOperator analog)
+        conn = ctx.catalog.connectors[base.catalog]
+        batches = list(execute_node(base.child, ctx))
+        n = conn.write_part(base.table,
+                            f"{base.write_id}-{ctx.task_index:04d}",
+                            batches) if batches else 0
+        yield count_batch(n, ctx.device)
+        return
     raise NotImplementedError(
         f"no executor for {type(base).__name__} in presto_tpu_torch yet")
+
+
+def count_batch(rows: int, device: torch.device) -> Batch:
+    """One BIGINT `rows` row: what a statement or a scaled writer
+    returns."""
+    vals = torch.zeros(128, dtype=torch.int64, device=device)
+    vals[0] = rows
+    live = torch.zeros(128, dtype=torch.bool, device=device)
+    live[0] = True
+    return Batch(["rows"], [BIGINT], [Column(vals)], live, {})
 
 
 # -- unnest ---------------------------------------------------------------------
@@ -641,19 +712,24 @@ def _scan_batches(scan: TableScan, ctx: ExecContext) -> Iterator[Batch]:
     columns = list(scan.assignments.values())
     symbols = list(scan.assignments.keys())
     if not columns:
-        # count(*)-style scan: batches of liveness only
-        cap = round_up_capacity(min(nrows, ctx.config.batch_rows) or 1)
+        # count(*)-style scan: batches of liveness only; a distributed
+        # task accounts its slice of the rows
+        per = (nrows // ctx.n_tasks
+               + (1 if ctx.task_index < nrows % ctx.n_tasks else 0))
+        cap = round_up_capacity(min(per, ctx.config.batch_rows) or 1)
+        if per == 0 and ctx.task_index != 0:
+            return
         done = 0
         while True:
-            take = min(cap, nrows - done)
+            take = min(cap, per - done)
             live = torch.arange(cap, device=ctx.device) < take
             yield Batch([], [], [], live, {})
             done += take
-            if done >= nrows:
+            if done >= per:
                 return
     nsplits = max(1, -(-nrows // ctx.config.batch_rows))
     cap = round_up_capacity(min(nrows, ctx.config.batch_rows) or 1)
-    splits = conn.splits(handle, nsplits)
+    splits = _task_splits(scan, ctx, conn.splits(handle, nsplits))
     read_split = conn.read_split
     bounds = (_constraints_to_storage(scan, handle) if scan.constraints
               else {})
@@ -701,6 +777,27 @@ def _scan_batches(scan: TableScan, ctx: ExecContext) -> Iterator[Batch]:
     yield from _prefetched(
         lambda split: read_split(split, columns, ctx.device, capacity=cap),
         splits, depth, symbols)
+
+
+def _task_splits(scan: TableScan, ctx: ExecContext, splits: list) -> list:
+    """This task's share of a scan's splits: one bucket's in a grouped
+    execution pass, else the coordinator's assignment (ordinals of the
+    unpruned enumeration), else every n_tasks-th split from task_index."""
+    assigned = (ctx.split_assignment or {}).get(scan.table)
+    if ctx.lifespan is not None and any(s.bucket is not None
+                                        for s in splits):
+        return [s for s in splits if s.bucket == ctx.lifespan]
+    if assigned is not None:
+        expected = (ctx.split_counts or {}).get(scan.table)
+        if expected is not None and expected != len(splits):
+            raise RuntimeError(
+                f"split enumeration for {scan.table} changed underneath "
+                f"the plan (coordinator saw {expected}, scan sees "
+                f"{len(splits)}) — retry the query")
+        return [splits[i] for i in assigned if i < len(splits)]
+    if ctx.n_tasks > 1:
+        return splits[ctx.task_index::ctx.n_tasks]
+    return splits
 
 
 def _prefetched(read, splits, depth: int, symbols) -> Iterator[Batch]:
@@ -925,7 +1022,8 @@ def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
     merge_step(acc, b, cap, prechained=False) → (acc', n_groups) folds a
     raw input batch (through the node's child chain unless `prechained`)
     into the accumulator; acc_merge_step(acc, b, cap) folds a batch of
-    state columns (a spilled accumulator) into it."""
+    state columns (a spilled accumulator) into it. A final step's input
+    rows are a partial step's state columns (after the exchange)."""
     _, chain0 = collapse_chain(node.child)
     chain = chain0 or (lambda b: b)
     in_types = dict(node.child.output)
@@ -933,14 +1031,25 @@ def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
     lpairs = limb_pairs(layout)
     key_syms = node.group_keys
     key_types = [in_types[k] for k in key_syms]
-    state_types = _layout_state_types(layout, in_types)
+    final_mode = node.step == "final"
+    if final_mode:
+        state_types = [in_types[name] for name, _, _ in layout]
+    else:
+        state_types = _layout_state_types(layout, in_types)
 
     def in_to_states(b: Batch):
         keys = [KeyCol(b.column(k).values, b.column(k).validity,
                        _key_domain(b, k, t))
                 for k, t in zip(key_syms, key_types)]
-        states = [_input_state(b, name, op, a, st, in_types)
-                  for (name, op, a), st in zip(layout, state_types)]
+        if final_mode:
+            # a count state over counts sums them
+            states = [StateCol(b.column(name).values.to(
+                                   torch_dtype(st.dtype)),
+                               b.column(name).validity, op)
+                      for (name, op, _), st in zip(layout, state_types)]
+        else:
+            states = [_input_state(b, name, op, a, st, in_types)
+                      for (name, op, a), st in zip(layout, state_types)]
         return keys, states
 
     def acc_to_states(acc: Batch):
@@ -1001,6 +1110,7 @@ def _agg_steps(node: Aggregate, engine: str) -> SimpleNamespace:
 
     return SimpleNamespace(layout=layout, key_syms=key_syms,
                            key_types=key_types, in_types=in_types,
+                           state_types=state_types, in_to_states=in_to_states,
                            chain=chain, merge_step=merge_step,
                            acc_merge_step=acc_merge_step)
 
@@ -1016,8 +1126,11 @@ def _acc_batch(src: Batch, key_syms, key_types, layout, state_types, kout,
     names = list(key_syms) + [name for name, _, _ in layout]
     dicts = {k: src.dicts[k] for k in key_syms if k in src.dicts}
     for name, op, a in layout:
+        # a final step's string state column carries its own dictionary
         if op in ("min", "max") and a.arg in src.dicts:
             dicts[name] = src.dicts[a.arg]
+        elif op in ("min", "max") and name in src.dicts:
+            dicts[name] = src.dicts[name]
     return Batch(names, list(key_types) + list(state_types), cols, out_live,
                  dicts)
 
@@ -1041,6 +1154,10 @@ def _agg_presize(node: Aggregate, ctx: ExecContext):
             st = None
         rows = st.rows if (st is not None and st.rows) else None
         if rows:
+            if ctx.lifespans:
+                # grouped execution: one bucket holds ~1/lifespans of the
+                # groups
+                rows = rows / ctx.lifespans
             want = round_up_capacity(int(min(rows * 1.25, float(1 << 23))))
             cap = max(cap, want)
     grace_from_start = can_spill and cap > ceiling
@@ -1049,23 +1166,95 @@ def _agg_presize(node: Aggregate, ctx: ExecContext):
     return cap, ceiling, can_spill, grace_from_start
 
 
+def _grouped_execution_lifespans(node: Aggregate) -> int:
+    """GroupedExecutionTagger (reference PlanFragmenter.java:914): when
+    every group key traces, through Filter/Project identity references,
+    down to a colocated bucketed join whose preserved-side join keys the
+    group keys cover, every group's rows live inside one bucket, so the
+    whole aggregation over the join can run bucket by bucket. Returns the
+    bucket count, or 0."""
+    keys = set(node.group_keys)
+    if not keys:
+        return 0
+    n = node.child
+    while True:
+        if isinstance(n, Filter):
+            n = n.child
+        elif isinstance(n, Project):
+            m = dict(n.exprs)
+            mapped = set()
+            for k in keys:
+                e = m.get(k)
+                if not isinstance(e, InputRef):
+                    return 0  # a computed key traces to no bucket column
+                mapped.add(e.name)
+            keys = mapped
+            n = n.child
+        elif isinstance(n, HashJoin) and n.colocated:
+            # the NULL-extended rows of an outer join carry NULL keys on
+            # the other side: only the preserved side's keys qualify
+            if set(n.left_keys) <= keys and n.kind in ("inner", "left"):
+                return n.colocated
+            if set(n.right_keys) <= keys and n.kind == "inner":
+                return n.colocated
+            return 0
+        else:
+            return 0
+
+
+def _lifespan_sweep(ctx: ExecContext, buckets: int, run,
+                    sizes_state: bool = False) -> Iterator[Batch]:
+    """Run `run()` once for each of this task's buckets with the scans
+    reading that bucket alone (grouped execution). `sizes_state`: the
+    aggregation rooted at the sweep sizes its table for one bucket."""
+    try:
+        if sizes_state:
+            ctx.lifespans = buckets
+        for b in range(ctx.task_index, buckets, ctx.n_tasks):
+            ctx.lifespan = b
+            yield from run()
+    finally:
+        ctx.lifespan = None
+        ctx.lifespans = None
+
+
 def _execute_aggregate(node: Aggregate, ctx: ExecContext) -> Iterator[Batch]:
-    if node.step != "single":
-        raise NotImplementedError(
-            f"{node.step} aggregation steps are not supported by "
-            "presto_tpu_torch yet")
+    if ctx.lifespan is None:
+        ls = _grouped_execution_lifespans(node)
+        if ls:
+            # the sweep rooted here finalizes and frees each bucket's
+            # groups before the next bucket builds
+            yield from _lifespan_sweep(
+                ctx, ls, lambda: _execute_aggregate(node, ctx),
+                sizes_state=True)
+            return
     for a in node.aggs:
         if a.fn not in _SUPPORTED_AGGS or a.distinct:
             raise NotImplementedError(
                 f"aggregate {a.fn}{' distinct' if a.distinct else ''} is not "
                 "supported by presto_tpu_torch yet")
     if any(a.fn in _SORTED_AGGS or a.fn in _HOST_AGGS for a in node.aggs):
+        if node.step != "single":
+            raise RuntimeError(
+                "non-decomposable aggregates must run single-step "
+                "(fragmenter gathers them)")
         yield from _execute_materialized_aggregate(node, ctx)
         return
     in_stream, _ = _fused_child(node.child, ctx)
     engine = _breaker_engine_choice(node, ctx)
     steps = _agg_steps(node, engine)
     cap, ceiling, can_spill, grace_from_start = _agg_presize(node, ctx)
+    if node.step == "partial" and grace_from_start:
+        # partial-aggregation bypass: when the group count nears the row
+        # count a partial merge reduces nothing, so each row's state
+        # contributions pass unmerged and the final step merges once
+        for b in in_stream:
+            b = steps.chain(b)
+            kin, sin = steps.in_to_states(b)
+            yield _acc_batch(b, steps.key_syms, steps.key_types,
+                             steps.layout, steps.state_types, kin, sin,
+                             b.live)
+        return
     # radix pays only for a large group table (a presize past the base
     # capacity); a spill budget engages it regardless
     if (node.group_keys and ctx.config.radix_partitions > 1
@@ -1260,7 +1449,7 @@ class _SpillableAggregation:
                     self._raw().spill(steps.chain(ov.batch))
                     self._grace_ingest(in_stream)
             if self.spiller is None and self.raw_spiller is None:
-                yield _finalize_aggregate(node, self.acc, steps, ctx.device)
+                yield from _agg_output(node, self.acc, steps, ctx.device)
                 return
             # spilled: finalize partition by partition
             self._spill_acc()
@@ -1314,7 +1503,7 @@ class _SpillableAggregation:
         if acc is None:
             return
         ctx.bump("spill.partitions")
-        yield _finalize_aggregate(self.node, acc, self.steps, ctx.device)
+        yield from _agg_output(self.node, acc, self.steps, ctx.device)
         self.mctx.set_bytes(0)
 
 
@@ -1386,7 +1575,7 @@ def _radix_aggregate(node: Aggregate, ctx: ExecContext, steps,
         for p in range(P):
             if p in rfiles or accs[p] is None:
                 continue
-            yield _finalize_aggregate(node, accs[p], steps, ctx.device)
+            yield from _agg_output(node, accs[p], steps, ctx.device)
             accs[p] = None
         # hybrid-spilled partitions, one resident at a time
         for p in sorted(rfiles):
@@ -1398,7 +1587,7 @@ def _radix_aggregate(node: Aggregate, ctx: ExecContext, steps,
             for sub in _coalesced(afiles[p].read(ctx.device), rows):
                 merge_into(p, sub, steps.acc_merge_step)
             if accs[p] is not None:
-                yield _finalize_aggregate(node, accs[p], steps, ctx.device)
+                yield from _agg_output(node, accs[p], steps, ctx.device)
                 accs[p] = None
     finally:
         rev.close()
@@ -1453,6 +1642,17 @@ def _spill_replay_budget(ctx: ExecContext) -> Optional[int]:
     return None
 
 
+def _agg_output(node: Aggregate, acc: Optional[Batch], steps,
+                device: torch.device) -> Iterator[Batch]:
+    """An accumulator's output: a partial step's state columns as they are
+    (for the exchange; none when no row came), else the final values."""
+    if node.step == "partial":
+        if acc is not None:
+            yield acc
+        return
+    yield _finalize_aggregate(node, acc, steps, device)
+
+
 def _finalize_aggregate(node: Aggregate, acc: Optional[Batch], steps,
                         device: torch.device) -> Batch:
     out_syms = [s for s, _ in node.output]
@@ -1491,7 +1691,9 @@ def _finalize_aggregate(node: Aggregate, acc: Optional[Batch], steps,
                               + lo.to(torch.float64), lo_t.scale)
             else:
                 s = acc.column(a.symbol + "$sum").values
-                src_t = sum_state_type(a, steps.in_types)
+                src_t = (steps.in_types[a.symbol + "$sum"]
+                         if node.step == "final"
+                         else sum_state_type(a, steps.in_types))
                 num = s.to(torch.float64)
                 if isinstance(src_t, DecimalType):
                     num = unscale(num, src_t.scale)
@@ -2086,6 +2288,15 @@ def _execute_join(node: HashJoin, ctx: ExecContext) -> Iterator[Batch]:
     if node.kind not in ("inner", "left", "full"):
         raise NotImplementedError(
             f"{node.kind} hash joins are not supported by presto_tpu_torch yet")
+    if node.colocated and ctx.lifespan is None:
+        # grouped execution over a colocated bucketed join: each pass
+        # builds from one bucket of the build table and probes the same
+        # bucket of the probe table, so the build side held is one
+        # bucket's and no row moves between tasks; a nested colocated
+        # join runs within the sweep
+        yield from _lifespan_sweep(ctx, node.colocated,
+                                   lambda: _execute_join(node, ctx))
+        return
     probe_stream, chain = _fused_child(node.left, ctx)
     build_stream = execute_node(node.right, ctx)
     if ctx.config.radix_partitions > 1:
@@ -3397,6 +3608,13 @@ def run_plan(qp: QueryPlan, ctx: ExecContext) -> Batch:
     mid-spill) are closed and unlinked on the way out."""
     try:
         bind_scalar_subqueries(qp, ctx)
+        if not qp.__dict__.get("_colocated_tagged"):
+            # local grouped execution: joins of tables bucketed alike run
+            # bucket by bucket (the fragmenter marks them for a cluster)
+            from presto_tpu_torch.plan.fragmenter import tag_colocated_joins
+
+            tag_colocated_joins(qp.root, ctx.catalog)
+            qp.__dict__["_colocated_tagged"] = True
         out_node = qp.root
         merged = _collect_concat(execute_node(out_node.child, ctx))
         if merged is None:

@@ -1,4 +1,4 @@
-"""Page format: Batch <-> bytes for spill files.
+"""Page format: Batch <-> bytes for spill files and the exchange.
 
 The JAX package's page format, byte for byte (reference:
 execution/buffer/PagesSerde.java:44 and the per-block encodings): a
@@ -11,10 +11,11 @@ the JAX package; where it does not, pages are written uncompressed (a
 reader without it refuses a compressed page).
 
 Device tensors cross to the host with one `.cpu()` a plane;
-`deserialize_batch` puts the batch on the device its caller names. The
-wire-only parts of the JAX package's format (dictionaries by reference and
-their side channel) belong to the distributed plane, which the port does
-not have.
+`deserialize_batch` puts the batch on the device its caller names. On the
+wire (`dict_refs=True`) a dictionary of more than `_DICT_INLINE_MAX`
+values goes as its content digest; a consumer that has not interned it
+resolves it once through the producer's `/v1/dict/{digest}`
+(`lookup_dictionary`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ from presto_tpu_torch.types import parse_type
 
 _MAGIC = b"PTP1"
 _FLAG_ZSTD = 1
+
+# dictionaries at or under this many values are always inlined on the wire:
+# the ref+fetch round trip costs more than the payload
+_DICT_INLINE_MAX = 64
 
 try:
     import zstandard as _zstd
@@ -128,6 +133,37 @@ def register_dictionary(d: Dictionary) -> Dictionary:
     return out
 
 
+def _intern_hit(key: bytes) -> Optional[Dictionary]:
+    with _DICT_INTERN_LOCK:
+        hit = _DICT_INTERN.get(key)
+        if hit is not None:
+            _DICT_INTERN.move_to_end(key)
+        return hit
+
+
+def lookup_dictionary(digest_hex: str) -> Optional[List[str]]:
+    """The value list of an interned dictionary by its digest, for the
+    /v1/dict endpoint; None when evicted or never seen (the producer
+    interns every dictionary it sends by reference, so a miss means LRU
+    eviction and the consumer fails the page)."""
+    try:
+        key = bytes.fromhex(digest_hex)
+    except ValueError:
+        return None
+    d = _intern_hit(key)
+    return None if d is None else [str(v) for v in d.values]
+
+
+def _dict_ref_json(d: Dictionary) -> str:
+    """A dictionary's by-reference entry of a wire page's header."""
+    js = d._memo.get("__ref_json")
+    if js is None:
+        js = d._memo["__ref_json"] = json.dumps(
+            {"ref": _dict_content_key(d.values).hex(), "len": len(d.values)},
+            separators=(",", ":"))
+    return js
+
+
 def _dict_json(d: Dictionary) -> str:
     """A dictionary's entry of a page header, its values as a JSON list;
     made once a dictionary (a page of a string column carries its whole
@@ -146,7 +182,21 @@ _PAGE_DICTS: "OrderedDict[bytes, dict]" = OrderedDict()
 _PAGE_DICTS_CAP = 64
 
 
-def _page_dicts(section: bytes) -> dict:
+def _ref_dictionary(entry: dict, resolver) -> Dictionary:
+    """A by-reference entry: the interned dictionary of its digest, or
+    the values the resolver fetches for it (once; they are interned)."""
+    key = bytes.fromhex(entry["ref"])
+    d = _intern_hit(key)
+    if d is not None:
+        return d
+    if resolver is None:
+        raise ValueError(f"page references dictionary {entry['ref'][:12]} "
+                         "with no resolver available")
+    vals = np.asarray(resolver(entry["ref"]), dtype=object)
+    return _intern_put(key, lambda: Dictionary(vals))
+
+
+def _page_dicts(section: bytes, resolver=None) -> dict:
     """The dictionaries of a page's `dicts` JSON object, interned."""
     key = hashlib.sha256(section).digest()
     with _DICT_INTERN_LOCK:
@@ -154,7 +204,8 @@ def _page_dicts(section: bytes) -> dict:
         if hit is not None:
             _PAGE_DICTS.move_to_end(key)
             return hit
-    out = {k: intern_dictionary(np.asarray(v, dtype=object))
+    out = {k: (_ref_dictionary(v, resolver) if isinstance(v, dict)
+               else intern_dictionary(np.asarray(v, dtype=object)))
            for k, v in json.loads(section).items()}
     with _DICT_INTERN_LOCK:
         _PAGE_DICTS[key] = out
@@ -176,10 +227,13 @@ def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
 
 
 def serialize_batch(b: Batch, compress: bool = True,
-                    radix: Optional[tuple] = None) -> bytes:
+                    radix: Optional[tuple] = None,
+                    dict_refs: bool = False) -> bytes:
     """Compact the live rows and serialize them. `radix` =
     (partition_id, num_partitions, key_names) stamps the page (it reads
-    back as a TaggedBatch)."""
+    back as a TaggedBatch). `dict_refs` sends dictionaries past
+    `_DICT_INLINE_MAX` values as their digest (wire pages only: spill
+    files stay self-contained)."""
     live = _host(b.live)
     n = int(live.sum())
     header = {"n": n, "names": list(b.names), "types": [str(t) for t in b.types],
@@ -230,7 +284,9 @@ def serialize_batch(b: Batch, compress: bool = True,
     # the header's JSON, keys in the JAX package's order, with each
     # dictionary's cached list spliced in
     parts = [json.dumps(header, separators=(",", ":"))[:-1], ',"dicts":{',
-             ",".join(json.dumps(k) + ":" + _dict_json(d) for k, d in dicts),
+             ",".join(json.dumps(k) + ":" + (
+                 _dict_ref_json(d) if dict_refs and len(d.values)
+                 > _DICT_INLINE_MAX else _dict_json(d)) for k, d in dicts),
              "}"]
     if radix is not None:
         r, num, keys = radix
@@ -241,9 +297,13 @@ def serialize_batch(b: Batch, compress: bool = True,
 
 
 def deserialize_batch(data: bytes, capacity: Optional[int] = None,
-                      device: Union[str, torch.device] = "cpu") -> Batch:
+                      device: Union[str, torch.device] = "cpu",
+                      dict_resolver: Optional[Callable[[str], List[str]]]
+                      = None) -> Batch:
     """A page back as a Batch on `device`, its n rows live and padded to
-    `capacity` (default: n's power-of-two bucket)."""
+    `capacity` (default: n's power-of-two bucket). `dict_resolver(digest)`
+    fetches the values of a by-reference dictionary this process has not
+    interned."""
     if data[:4] != _MAGIC:
         raise ValueError("bad page magic")
     flags, hlen, plen = struct.unpack_from("<BII", data, 4)
@@ -257,7 +317,7 @@ def deserialize_batch(data: bytes, capacity: Optional[int] = None,
     if end < start:
         end = len(hb) - 1
     header = json.loads(hb[:start] + b'"dicts":{}' + hb[end:])
-    dicts = _page_dicts(hb[start + len(b'"dicts":'):end])
+    dicts = _page_dicts(hb[start + len(b'"dicts":'):end], dict_resolver)
     payload = data[off + hlen:off + hlen + plen]
     if flags & _FLAG_ZSTD:
         payload = _zd().decompress(payload)

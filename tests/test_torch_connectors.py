@@ -957,12 +957,12 @@ def _ref_filtered(b, mask):
             b.names, b.types, b.columns, jnp.asarray(live), b.dicts)
 
 
-def test_bucketed_join_matches_reference(tmp_path, reference_frames_dir):
-    """A join of two tables bucketed on their join key: the JAX package's
-    rows (both run it as an ordinary join here; grouped execution over
-    buckets comes with the fragmenter)."""
+def bucketed_join_tables(d: str):
+    """Two tables bucketed alike on their join key k, written into `d`
+    (4 buckets), and the query joining them: (sql, compute), compute()
+    being the JAX package's frame of it (shared as "scan_bucketed_join"
+    by this file and tests/test_torch_cluster.py)."""
     rng = np.random.default_rng(13)
-    d = str(tmp_path)
     a = {"k": rng.integers(0, 300, 2000), "x": rng.integers(0, 9, 2000)}
     b = {"k": np.arange(300), "y": rng.integers(0, 100, 300)}
     for name, data in (("a", a), ("b", b)):
@@ -976,6 +976,15 @@ def test_bucketed_join_matches_reference(tmp_path, reference_frames_dir):
         cat.register("pq", ref_parquet.ParquetConnector(d), default=True)
         return RefRunner(cat, RefConfig(**SMALL)).run(sql)
 
+    return sql, compute
+
+
+def test_bucketed_join_matches_reference(tmp_path, reference_frames_dir):
+    """A join of two tables bucketed on their join key: the JAX package's
+    rows. Both packages' LocalRunners mark the join colocated and run it
+    bucket by bucket (grouped execution)."""
+    d = str(tmp_path)
+    sql, compute = bucketed_join_tables(d)
     want = shared(reference_frames_dir, "scan_bucketed_join", compute)
     cat = Catalog()
     cat.register("pq", parquet.ParquetConnector(d), default=True)

@@ -81,3 +81,23 @@ def test_guard_covers_scan_modules():
                  "presto_tpu_torch/catalog/jdbc.py",
                  "presto_tpu_torch/catalog/remote.py"):
         assert path in files, path
+
+
+def test_guard_covers_cluster_modules():
+    """The cluster, its planning and wire modules and the client surface
+    are among the files guarded above."""
+    files = set(_port_files())
+    for path in ("presto_tpu_torch/plan/codec.py",
+                 "presto_tpu_torch/plan/fragmenter.py",
+                 "presto_tpu_torch/server/__main__.py",
+                 "presto_tpu_torch/server/buffers.py",
+                 "presto_tpu_torch/server/coordinator.py",
+                 "presto_tpu_torch/server/exchange.py",
+                 "presto_tpu_torch/server/protocol.py",
+                 "presto_tpu_torch/server/querymanager.py",
+                 "presto_tpu_torch/server/session.py",
+                 "presto_tpu_torch/server/worker.py",
+                 "presto_tpu_torch/client.py",
+                 "presto_tpu_torch/dbapi.py",
+                 "presto_tpu_torch/cli.py"):
+        assert path in files, path

@@ -9,6 +9,9 @@
   over doubles, float windows) at rtol=1e-12, the tolerance the JAX
   package allows between its own engines (tests/test_kernels.py).
 - EXPLAIN marks the same breaker engines as the JAX package's.
+- Each query's distributed plan: the port's fragmenter cuts the JAX
+  package's fragments (codec JSON, character for character), under the
+  default broadcast threshold and with every join partitioned.
 """
 
 import ast
@@ -31,7 +34,13 @@ from presto_tpu_torch.catalog.tpcds_queries import (
     SHAPES,
 )
 from presto_tpu_torch.exec import ExecConfig, LocalRunner
-from test_torch_tpch import assert_frames_equal, one_torch_thread  # noqa: F401
+from test_torch_fragments import THRESHOLDS, assert_same_fragments
+from test_torch_tpch import (  # noqa: F401 — fixtures
+    assert_frames_equal,
+    one_torch_thread,
+    reference_frames_dir,
+    shared,
+)
 
 SF = 0.01
 # the session of tests/test_tpcds_answers.py and tests/test_tpcds_queries.py
@@ -40,8 +49,26 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 @pytest.fixture(scope="module")
-def catalogs():
-    return ref_tpcds_catalog(SF), tpcds_catalog(SF)
+def catalogs(reference_frames_dir):
+    """Both packages' TPC-DS catalogs. Their 24 tables (with the column
+    statistics a table handle computes) are generated once in a session
+    and shared between the test processes (`shared`): each process built
+    them anew before, about 11 s each."""
+    ref, port = ref_tpcds_catalog(SF), tpcds_catalog(SF)
+
+    def generate():
+        out = []
+        for cat in (ref, port):
+            conn = cat.connectors["tpcds"]
+            for name in conn.table_names():
+                conn.get_table(name)
+            out.append(conn.tables)
+        return out
+
+    tables = shared(reference_frames_dir, "tpcds_tables", generate)
+    for cat, t in zip((ref, port), tables):
+        cat.connectors["tpcds"].tables = t
+    return ref, port
 
 
 def test_tables_identical(catalogs):
@@ -81,6 +108,14 @@ def test_tpcds_query_matches_reference(catalogs, q):
         got = LocalRunner(port, ExecConfig(breaker_engine=engine, **CFG),
                           device="cpu").run(QUERIES[q])
         assert_frames_equal(got, want, (q, engine))
+
+
+@pytest.mark.parametrize("q", list(QUERIES))
+def test_tpcds_fragments_match_reference(catalogs, q):
+    """No query runs: both packages plan and cut the query."""
+    ref, port = catalogs
+    for how, threshold in THRESHOLDS.items():
+        assert_same_fragments(ref, port, QUERIES[q], threshold, (q, how))
 
 
 def _sql_of_test_functions(path):
