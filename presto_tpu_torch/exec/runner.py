@@ -13,6 +13,7 @@ removed.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
@@ -27,6 +28,7 @@ from presto_tpu_torch.exec.runtime import (
     mark_breaker_engines,
     run_plan,
 )
+from presto_tpu_torch.obs import trace as _obs_trace
 from presto_tpu_torch.plan.builder import plan_query
 from presto_tpu_torch.plan.multiway import apply_join_mode
 from presto_tpu_torch.plan.nodes import QueryPlan, plan_to_string
@@ -117,6 +119,9 @@ class LocalRunner:
         self._plan_cache = {}
         # ExecContext.stats of the most recent run
         self.last_stats: dict = {}
+        # Tracer of the most recent run (config.tracing): the local
+        # counterpart of the coordinator's /v1/query/{id}/trace
+        self.last_trace = None
 
     def _plan_statement(self, stmt, sql: Optional[str] = None) -> QueryPlan:
         if not isinstance(stmt, (ast.Query, ast.SetOp)):
@@ -143,17 +148,34 @@ class LocalRunner:
 
     def explain(self, sql: str) -> str:
         qp = self.plan(sql)
-        mark_breaker_engines(qp.root, self._new_ctx())
+        mark_breaker_engines(qp.root, ExecContext(self.catalog, self.config,
+                                                  self.device))
         return plan_to_string(qp.root)
 
-    def _new_ctx(self) -> ExecContext:
-        return ExecContext(self.catalog, self.config, self.device)
+    def _new_ctx(self, cfg: Optional[ExecConfig] = None) -> ExecContext:
+        ctx = ExecContext(self.catalog, cfg or self.config, self.device)
+        if ctx.config.tracing:
+            ctx.tracer = _obs_trace.Tracer()
+            self.last_trace = ctx.tracer
+        return ctx
 
     def _run_plan(self, qp: QueryPlan) -> Batch:
         ctx = self._new_ctx()
         out = run_plan(qp, ctx)
         self.last_stats = ctx.stats
         return out
+
+    def explain_analyze(self, sql: str) -> str:
+        """Execute with per-operator stats and render the annotated plan
+        (reference: EXPLAIN ANALYZE via ExplainAnalyzeOperator): rows,
+        batches, wall and bytes per operator, the engine verdicts and
+        HBO's estimate-against-actual drift."""
+        qp = self.plan(sql)
+        ctx = self._new_ctx(dataclasses.replace(self.config,
+                                                collect_stats=True))
+        run_plan(qp, ctx)
+        self.last_stats = ctx.stats
+        return plan_to_string(qp.root, node_stats=ctx.node_stats)
 
     def run_batch(self, sql: str) -> Batch:
         """Execute to one compacted Batch on the runner's device."""

@@ -46,7 +46,17 @@ host files (spiller.py). A keyed aggregation whose presize passes
 each partition merges on its own, splitting again by the next hash bits
 when it still outgrows the ceiling. `radix_partitions` splits joins and
 high-NDV group-bys by the top hash bits (ops/radix.py). Not yet here:
-adaptive execution and history-based optimization.
+adaptive execution and history-based correction.
+
+Observability (obs/) hooks in at the JAX package's sites: every operator
+stream gets a span (`_traced`, host time only: no device sync) and, for
+EXPLAIN ANALYZE, per-batch stats (`_instrumented`, which syncs); the
+breakers stamp their engine verdict and replay, spill and cascade
+markers; HBO observes estimate against actual at the aggregate, join and
+spill sites. A count the port holds only on the device is read where it
+already reads the host: an aggregate's group count at its merge, a
+join's build and probe counts once at the query's end
+(`ExecContext.flush_observations`).
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ import datetime
 import itertools
 import queue
 import threading
+import time
 from types import SimpleNamespace
 from typing import (
     Callable,
@@ -168,6 +179,10 @@ from presto_tpu_torch.plan.nodes import (
     Unnest,
     Window,
 )
+from presto_tpu_torch.obs import devprof as _devprof
+from presto_tpu_torch.obs import metrics as _obs_metrics
+from presto_tpu_torch.obs import runstats as _runstats
+from presto_tpu_torch.obs import trace as _obs_trace
 from presto_tpu_torch.scan import metrics as _scan_metrics
 from presto_tpu_torch.scan.adaptive import AdaptiveFilterOrder
 from presto_tpu_torch.scan.filters import filters_from_constraints
@@ -200,6 +215,42 @@ class ExecConfig:
     # (MergingPageOutput analog; see _merging_output)
     merge_sparse_output: bool = True
     max_growth_retries: int = 24
+    # EXPLAIN ANALYZE: per-operator wall/rows/batches accounting (forces a
+    # device sync per batch — off in production, like Presto's verbose
+    # stats)
+    collect_stats: bool = False
+    # query-lifecycle span tracing (obs/trace.py): operator, host_decode,
+    # device_transfer, exchange_wait spans. Cheap enough to stay on (no
+    # device sync: an operator span's wall is host time, which on the card
+    # is kernel enqueue time); False makes every span site a single
+    # attribute check on the NOOP tracer
+    tracing: bool = True
+    # history-based optimization (obs/runstats.py): "observe" (default)
+    # records estimate-vs-actual drift at every stats-driven decision site
+    # keyed on structural fingerprints; "off" is a strict no-op. The JAX
+    # package's "correct" waits for ROADMAP item 12
+    hbo: str = "observe"
+    # device memory accounting plane (obs/devprof.py): "on" samples the
+    # card's allocator watermark at query boundaries and reconciles it
+    # against the MemoryPool ledger; "off" (default) is a strict no-op
+    devprof: str = "off"
+    # on-demand torch.profiler capture for this query, a Chrome trace
+    # under PRESTO_TPU_CACHE_DIR (no-op with a warning without it)
+    profile: bool = False
+    # serving-plane SLO telemetry (obs/lifecycle.py): "on" makes worker
+    # task sinks count emitted rows/batches so heartbeats carry live query
+    # progress; "off" is a strict no-op
+    lifecycle: str = "on"
+    # mid-flight telemetry plane (obs/inflight.py): "on" makes operators
+    # publish host-held watermarks (rows, replays, spill depth) into the
+    # per-query inflight store; "off" (default) is a strict no-op
+    inflight: str = "off"
+    # stall detector bound: row watermarks frozen for this many seconds
+    # while the query executes → stall_detected event + forensics dump
+    stall_threshold_s: float = 2.0
+    # straggler detector bound: a fragment site > factor x behind its
+    # siblings' window watermark → straggler_detected event + slow-log doc
+    straggler_factor: float = 4.0
     # memory pool and spill (memory.py, spiller.py; None = unlimited)
     memory_pool_bytes: Optional[int] = None
     spill_enabled: bool = True
@@ -293,6 +344,47 @@ class ExecContext:
         # every spiller and spill file an operator opens, so teardown can
         # close and unlink them even when the operator died mid-spill
         self.spill_resources: List = []
+        # per-plan-node OperatorStats analog (keyed by id(node)):
+        # {"rows", "batches", "wall_s", "bytes"} — collect_stats runs only
+        self.node_stats: Dict[int, Dict[str, float]] = {}
+        # span tracer (obs/trace.py): NOOP unless the LocalRunner or a
+        # worker task installs a real one
+        self.tracer = _obs_trace.NOOP
+        # mid-flight telemetry publisher (obs/inflight.TaskInflight), set
+        # by a worker task when the `inflight` property is on
+        self.inflight = None
+        # HBO observations whose counts are still device scalars:
+        # (callback, tensors), read together by flush_observations
+        self.pending_obs: List[Tuple[Callable, List[torch.Tensor]]] = []
+
+    def record(self, node, rows: int, wall_s: float, bytes_: int = 0):
+        s = self.node_stats.setdefault(
+            id(node), {"rows": 0, "batches": 0, "wall_s": 0.0, "bytes": 0})
+        s["rows"] += rows
+        s["batches"] += 1
+        s["wall_s"] += wall_s
+        s["bytes"] += bytes_
+
+    def defer_observation(self, fn: Callable, *counts: torch.Tensor) -> None:
+        """Call fn(*floats) with these device counts once they are read
+        (flush_observations); nothing reads them now."""
+        self.pending_obs.append((fn, list(counts)))
+
+    def flush_observations(self) -> None:
+        """Read every deferred count in one host copy and run its
+        observation. Called where the query's device work is already
+        being read (the end of run_plan, a task's sink), so the copy
+        waits for nothing the caller would not wait for."""
+        pending, self.pending_obs = self.pending_obs, []
+        if not pending:
+            return
+        flat = [t.reshape(()).to(torch.float64) for _, ts in pending
+                for t in ts]
+        vals = torch.stack(flat).tolist()
+        i = 0
+        for fn, ts in pending:
+            fn(*vals[i:i + len(ts)])
+            i += len(ts)
 
     def bump(self, key: str, delta: int = 1) -> None:
         self.stats[key] = self.stats.get(key, 0) + delta
@@ -415,6 +507,10 @@ def execute_node(node: PlanNode, ctx: ExecContext) -> Iterator[Batch]:
     on top of a breaker applies per output batch."""
     base, down = collapse_chain(node)
     stream = _execute_base(base, ctx)
+    if ctx.config.collect_stats:
+        stream = _instrumented(stream, base, ctx)
+    if ctx.tracer.enabled:
+        stream = _traced(stream, base, ctx)
     if down is not None:
         stream = (down(b) for b in stream)
     if ctx.config.merge_sparse_output and isinstance(base, _SPARSE_OUTPUT):
@@ -427,9 +523,60 @@ def _fused_child(node: PlanNode, ctx: ExecContext):
     child — the ScanFilterAndProject fusion point."""
     base, up = collapse_chain(node)
     stream = _execute_base(base, ctx)
+    if ctx.config.collect_stats:
+        stream = _instrumented(stream, base, ctx)
+    if ctx.tracer.enabled:
+        stream = _traced(stream, base, ctx)
     if ctx.config.merge_sparse_output and isinstance(base, _SPARSE_OUTPUT):
         stream = _merging_output(stream, ctx.config.batch_rows)
     return stream, (up or (lambda b: b))
+
+
+def _instrumented(stream: Iterator[Batch], node: PlanNode, ctx: ExecContext):
+    """OperatorStats collection (reference: OperationTimer stamping every
+    addInput/getOutput into OperatorStats, Driver.java:277). Reads each
+    batch's live count on the host: a device sync per batch, which is
+    why only EXPLAIN ANALYZE (collect_stats) runs it."""
+    while True:
+        t0 = time.perf_counter()
+        try:
+            b = next(stream)
+        except StopIteration:
+            return
+        rows = b.num_live()  # forces a device sync
+        ctx.record(node, rows, time.perf_counter() - t0,
+                   bytes_=batch_device_bytes(b))
+        yield b
+
+
+def _traced(stream: Iterator[Batch], node: PlanNode, ctx: ExecContext):
+    """Span wrapper: one aggregate `operator` span per plan node (total
+    span = first pull to exhaustion; busy_s = time spent inside next()),
+    plus a kernel-wall histogram observation per batch. No device sync:
+    on the card busy_s is the host's enqueue time, not kernel time. The
+    span closes in `finally`, so an undrained stream (LIMIT, a consumer
+    that raised) records it when the generator closes."""
+    tracer = ctx.tracer
+    parent = tracer.current_parent()
+    start = time.time()
+    busy = 0.0
+    batches = 0
+    try:
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(stream)
+            except StopIteration:
+                return
+            dt = time.perf_counter() - t0
+            busy += dt
+            batches += 1
+            _obs_metrics.BATCH_KERNEL_WALL.observe(dt, plane="worker")
+            yield b
+    finally:
+        tracer.record(type(node).__name__, "operator", start, time.time(),
+                      parent_id=parent, busy_s=round(busy, 6),
+                      batches=batches)
 
 
 def _pad_batch(b: Batch, cap: int) -> Batch:
@@ -768,6 +915,26 @@ def _scan_batches(scan: TableScan, ctx: ExecContext) -> Iterator[Batch]:
                 return conn.read_split_selective(
                     split, columns, filters, device, capacity=capacity,
                     adaptive=adaptive, counters=count)
+    if ctx.tracer.enabled:
+        # host_decode / device_transfer sub-spans per split. The parent is
+        # captured HERE (the consumer thread, under the query or task
+        # span): the prefetch producer thread has no span stack of its own
+        tracer = ctx.tracer
+        scan_parent = tracer.current_parent()
+        inner_read = read_split
+
+        def read_split(split, columns, device, capacity=None):
+            w0 = time.time()
+            b = inner_read(split, columns, device, capacity=capacity)
+            w1 = time.time()
+            tracer.record("host_decode", "host_decode", w0, w1,
+                          parent_id=scan_parent, table=scan.table)
+            # the upload is enqueued with the read; never wait for it
+            # here: a sync per split would serialize the prefetch pipeline
+            tracer.record("device_transfer", "device_transfer", w1,
+                          time.time(), parent_id=scan_parent,
+                          table=scan.table)
+            return b
     depth = ctx.config.scan_prefetch
     if depth <= 0 or len(splits) <= 1:
         for split in splits:
@@ -776,7 +943,7 @@ def _scan_batches(scan: TableScan, ctx: ExecContext) -> Iterator[Batch]:
         return
     yield from _prefetched(
         lambda split: read_split(split, columns, ctx.device, capacity=cap),
-        splits, depth, symbols)
+        splits, depth, symbols, ctx.tracer)
 
 
 def _task_splits(scan: TableScan, ctx: ExecContext, splits: list) -> list:
@@ -800,21 +967,25 @@ def _task_splits(scan: TableScan, ctx: ExecContext, splits: list) -> list:
     return splits
 
 
-def _prefetched(read, splits, depth: int, symbols) -> Iterator[Batch]:
+def _prefetched(read, splits, depth: int, symbols,
+                tracer=_obs_trace.NOOP) -> Iterator[Batch]:
     """A host thread decodes and uploads splits ahead of the consumer
     through a bounded queue (memory stays O(depth) batches); a read error
     is raised on the consumer, and an early exit (LIMIT, an error) stops
-    the producer after its current read and drains the queue."""
+    the producer after its current read and drains the queue. The
+    producer carries the query's tracer, so span sites below the
+    connector (the selective cascade) keep recording."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     done = object()
     stop = threading.Event()
 
     def producer():
         try:
-            for split in splits:
-                if stop.is_set():
-                    break
-                q.put(read(split))
+            with _obs_trace.use(tracer):
+                for split in splits:
+                    if stop.is_set():
+                        break
+                    q.put(read(split))
             q.put(done)
         except BaseException as e:  # surface read errors on the consumer
             q.put(e)
@@ -1003,6 +1174,10 @@ def _breaker_engine_choice(node: PlanNode, ctx: ExecContext) -> str:
     node.__dict__["_breaker_engine"] = engine
     node.__dict__["_breaker_engine_why"] = why
     ctx.bump(f"breaker.engine_{engine}")
+    if ctx.tracer.enabled:
+        t = time.time()
+        ctx.tracer.record("breaker_engine", "breaker_engine", t, t,
+                          node=type(node).__name__, engine=engine, why=why)
     return engine
 
 
@@ -1294,25 +1469,47 @@ class _RevokeFlag:
 
 def _grown_merge(ctx: ExecContext, step, acc: Optional[Batch], b: Batch,
                  cap: int, keyed: bool = True,
-                 limit: Optional[Callable[[int], None]] = None
-                 ) -> Tuple[Batch, int]:
+                 limit: Optional[Callable[[int], None]] = None,
+                 node: Optional[PlanNode] = None,
+                 obs: Optional[dict] = None) -> Tuple[Batch, int]:
     """(merged, capacity): `b` merged into `acc` at `cap`; a merge whose
     groups overflow the table runs again from the unchanged `acc` at the
     capacity that fits. `limit(capacity)` sees each growth first and may
-    raise."""
+    raise. `obs` (HBO) takes the confirmed group count, read on the host
+    here anyway, and the replay waves."""
     for _ in range(ctx.config.max_growth_retries):
         out, ng = step(acc, b, cap)
         if not keyed:
             return out, cap  # a global aggregate has one group
         n = int(ng)
         if n <= cap:
+            if obs is not None:
+                obs["groups"] = n
             return out, cap
         want = round_up_capacity(n)
         if limit is not None:
             limit(want)
         cap = want
-        ctx.bump("agg.replay_waves")
+        _bump_replay_wave(node, ctx, obs, cap)
     raise RuntimeError("aggregate capacity growth exceeded retries")
+
+
+def _bump_replay_wave(node: Optional[PlanNode], ctx: ExecContext,
+                      obs: Optional[dict], cap_to: int) -> None:
+    """Account one overflow-replay wave: a stats-sized capacity proved too
+    small and a merge ran again at a larger one (counter, zero-width span,
+    inflight watermark)."""
+    ctx.bump("agg.replay_waves")
+    if obs is not None:
+        obs["replays"] += 1
+    name = type(node).__name__ if node is not None else "Aggregate"
+    if ctx.tracer.enabled:
+        t = time.time()
+        ctx.tracer.record("overflow_replay", "overflow_replay", t, t,
+                          node=name, cap_to=cap_to)
+    if ctx.inflight is not None:
+        ctx.inflight.publish(name, wave=ctx.stats["agg.replay_waves"],
+                             cap=cap_to)
 
 
 class _GraceOverflow(Exception):
@@ -1354,12 +1551,15 @@ class _SpillableAggregation:
         self.mctx = LocalMemoryContext(ctx.memory_pool, "aggregate")
         self.raw_step = (lambda acc, b, c:
                          steps.merge_step(acc, b, c, prechained=True))
+        # HBO: the confirmed group count and the replay waves
+        self.obs = {"groups": 0, "replays": 0}
 
     def _new_spiller(self, tag: str):
         ctx = self.ctx
         sp = ctx.spill_manager.partitioning_spiller(
             self.steps.key_syms, ctx.config.spill_partitions, tag,
-            on_grow=lambda _child, _p: ctx.bump("spill.repartitions"))
+            on_grow=lambda child, _p: _note_spill_repartition(
+                self.node, ctx, child))
         ctx.track_spill(sp)
         return sp
 
@@ -1397,7 +1597,7 @@ class _SpillableAggregation:
             raise _GraceOverflow(b)
 
         out, self.cap = _grown_merge(self.ctx, step, self.acc, b, self.cap,
-                                     self.keyed, limit)
+                                     self.keyed, limit, self.node, self.obs)
         return out
 
     def _absorb(self, stream: Iterator[Batch], step, allow_spill: bool,
@@ -1410,6 +1610,9 @@ class _SpillableAggregation:
         ctx = self.ctx
         for b in stream:
             self.acc = self._merge(b, step, mode)
+            if ctx.inflight is not None:
+                # a merge boundary: counts the host already holds
+                ctx.inflight.publish(type(self.node).__name__, batches=1)
             out_bytes = batch_device_bytes(self.acc)
             if self.keyed:
                 out_bytes += batch_device_bytes(b)
@@ -1417,9 +1620,9 @@ class _SpillableAggregation:
                     self.rev.raised
                     or ctx.should_spill(out_bytes - self.mctx.bytes)):
                 was_revoke = self.rev.take()
-                self._spill_acc()
+                freed = self._spill_acc()
                 if was_revoke:
-                    ctx.bump("spill.revocations")
+                    _note_spill_revoke(self.node, ctx, freed)
             else:
                 self.mctx.set_bytes(out_bytes)
 
@@ -1449,6 +1652,11 @@ class _SpillableAggregation:
                     self._raw().spill(steps.chain(ov.batch))
                     self._grace_ingest(in_stream)
             if self.spiller is None and self.raw_spiller is None:
+                if ctx.lifespans is None:
+                    # a bucket sweep's group counts are per bucket, which
+                    # would poison the history as a whole-table total
+                    self.obs["final_cap"] = self.cap
+                    _hbo_record_agg(node, ctx, self.obs)
                 yield from _agg_output(node, self.acc, steps, ctx.device)
                 return
             # spilled: finalize partition by partition
@@ -1457,7 +1665,8 @@ class _SpillableAggregation:
             spiller, raw = self.spiller, self.raw_spiller
             for p in range((raw or spiller).n_partitions):
                 yield from self._finalize_leaf(raw, spiller, p, 0)
-            _record_spill_done(ctx, [raw, spiller])
+            _record_spill_done(ctx, [raw, spiller], node, "spill_agg",
+                               ctx.config.spill_partitions, "group")
         finally:
             self.rev.close()
             self.mctx.set_bytes(0)
@@ -1503,6 +1712,7 @@ class _SpillableAggregation:
         if acc is None:
             return
         ctx.bump("spill.partitions")
+        _spill_stats_for(self.node)["partitions"] += 1
         yield from _agg_output(self.node, acc, self.steps, ctx.device)
         self.mctx.set_bytes(0)
 
@@ -1532,8 +1742,12 @@ def _radix_aggregate(node: Aggregate, ctx: ExecContext, steps,
     def raw_step(acc, b, c):
         return steps.merge_step(acc, b, c, prechained=True)
 
+    # HBO: each partition's confirmed group count
+    part_obs = [{"groups": 0, "replays": 0} for _ in range(P)]
+
     def merge_into(p: int, sub: Batch, step) -> None:
-        accs[p], caps[p] = _grown_merge(ctx, step, accs[p], sub, caps[p])
+        accs[p], caps[p] = _grown_merge(ctx, step, accs[p], sub, caps[p],
+                                        node=node, obs=part_obs[p])
 
     def spill_partition(p: int) -> None:
         af = ctx.spill_manager.spill_file(f"radix-agg-acc-p{p}")
@@ -1569,9 +1783,9 @@ def _radix_aggregate(node: Aggregate, ctx: ExecContext, steps,
                             for pp in range(P)
                             if accs[pp] is not None and pp not in rfiles]
                 if resident:
-                    pp, _ = max(resident, key=lambda t: t[1])
+                    pp, nbytes = max(resident, key=lambda t: t[1])
                     spill_partition(pp)
-                    ctx.bump("spill.revocations")
+                    _note_spill_revoke(node, ctx, nbytes)
         for p in range(P):
             if p in rfiles or accs[p] is None:
                 continue
@@ -1579,16 +1793,25 @@ def _radix_aggregate(node: Aggregate, ctx: ExecContext, steps,
             accs[p] = None
         # hybrid-spilled partitions, one resident at a time
         for p in sorted(rfiles):
+            t0 = time.time()
             accs[p] = None
             caps[p] = start_cap
+            part_obs[p]["groups"] = 0
             rows = ctx.config.batch_rows
             for sub in _coalesced(rfiles[p].read(ctx.device), rows):
                 merge_into(p, sub, raw_step)
             for sub in _coalesced(afiles[p].read(ctx.device), rows):
                 merge_into(p, sub, steps.acc_merge_step)
+            if ctx.tracer.enabled:
+                ctx.tracer.record("radix_spill_replay", "radix_spill_replay",
+                                  t0, time.time(), partition=p)
             if accs[p] is not None:
                 yield from _agg_output(node, accs[p], steps, ctx.device)
                 accs[p] = None
+        if ctx.lifespans is None:
+            _hbo_record_agg(node, ctx, {
+                "groups": sum(o["groups"] for o in part_obs),
+                "replays": sum(o["replays"] for o in part_obs)})
     finally:
         rev.close()
         _close_radix_files(ctx, list(afiles.values()) + list(rfiles.values()))
@@ -1623,11 +1846,159 @@ def _close_radix_files(ctx: ExecContext, files: List[SpillFile]) -> None:
         f.close()
 
 
-def _record_spill_done(ctx: ExecContext, spillers) -> None:
-    """The bytes and rows one spilling operator's spillers wrote."""
+def _spill_stats_for(node: PlanNode) -> dict:
+    """Per-node spill accounting stamped for EXPLAIN ANALYZE's
+    [spill: P=… depth=… reversed=…] rendering and the HBO spill sites."""
+    return node.__dict__.setdefault(
+        "_spill_stats",
+        {"partitions": 0, "repartitions": 0, "reversed": 0, "depth": 0,
+         "revocations": 0, "bytes": 0})
+
+
+def _note_spill_repartition(node: PlanNode, ctx: ExecContext,
+                            child) -> None:
+    """One next-hash-bits split (mid-build growth or replay-time
+    recursive repartitioning): counter, span, EXPLAIN stats, inflight."""
+    st = _spill_stats_for(node)
+    st["repartitions"] += 1
+    st["depth"] = max(st["depth"], child.depth)
+    ctx.bump("spill.repartitions")
+    if ctx.tracer.enabled:
+        t = time.time()
+        ctx.tracer.record("spill_repartition", "spill_repartition", t, t,
+                          node=type(node).__name__, depth=int(child.depth),
+                          fanout=int(child.n_partitions))
+    if ctx.inflight is not None:
+        ctx.inflight.publish(type(node).__name__,
+                             repartitions=st["repartitions"],
+                             spillDepth=st["depth"])
+
+
+def _note_spill_revoke(node: PlanNode, ctx: ExecContext, freed: int) -> None:
+    """A pool revoke request was honored: spillable operator state left
+    the device at a batch boundary."""
+    _spill_stats_for(node)["revocations"] += 1
+    ctx.bump("spill.revocations")
+    if ctx.tracer.enabled:
+        t = time.time()
+        ctx.tracer.record("spill_revoke", "spill_revoke", t, t,
+                          node=type(node).__name__, freed=int(freed))
+    if ctx.inflight is not None:
+        ctx.inflight.publish(type(node).__name__, spilledBytes=int(freed))
+
+
+def _record_spill_done(ctx: ExecContext, spillers, node: PlanNode,
+                       site: str, est_p: int, side: str) -> None:
+    """Close out one spilling operator: the bytes and rows its spillers
+    wrote, the spilled-bytes histogram, and its spill shape (leaf count,
+    repartitions, reversals, depth) into HBO history under `site`."""
     spillers = [sp for sp in spillers if sp is not None]
-    ctx.bump("spill.bytes", sum(sp.spilled_bytes for sp in spillers))
+    spilled = sum(sp.spilled_bytes for sp in spillers)
+    ctx.bump("spill.bytes", spilled)
     ctx.bump("spill.rows", sum(sp.spilled_rows for sp in spillers))
+    st = _spill_stats_for(node)
+    st["bytes"] += int(spilled)
+    if spilled:
+        _obs_metrics.SPILLED_BYTES.observe(float(spilled), plane="worker",
+                                           side=side)
+    if ctx.config.hbo == "off":
+        return
+    fp = _runstats.node_fingerprint(node, ctx.catalog)
+    if fp is None:
+        return
+    _runstats.observe(fp, site, type(node).__name__.lower(), float(est_p),
+                      float(max(st["partitions"], 1)),
+                      extra={"repartitions": int(st["repartitions"]),
+                             "reversals": int(st["reversed"]),
+                             "depth": int(st["depth"]),
+                             "spilled_bytes": int(spilled)})
+
+
+def _derived_rows(node: PlanNode, catalog) -> Optional[float]:
+    """The CBO's row estimate of a node, None when it has none."""
+    from presto_tpu_torch.plan.stats import derive
+
+    try:
+        st = derive(node, catalog)
+    except Exception:  # noqa: BLE001 — an estimate that fails is absent
+        return None
+    return float(st.rows) if (st is not None and st.rows) else None
+
+
+def _hbo_record_agg(node: Aggregate, ctx: ExecContext, obs: dict) -> None:
+    """Record the aggregate's observed group count (the confirmed count
+    the overflow protocol already read on the host — no extra device
+    sync) into the runstats history, stamp the node for EXPLAIN ANALYZE's
+    drift rendering, and count whether the engine choice would flip on
+    the observed value."""
+    if ctx.config.hbo == "off":
+        return
+    if not node.group_keys or not obs.get("groups"):
+        return
+    fp = _runstats.node_fingerprint(node, ctx.catalog)
+    if fp is None:
+        return
+    est = _derived_rows(node, ctx.catalog)
+    actual = float(obs["groups"])
+    extra = {"replays": int(obs.get("replays", 0))}
+    if obs.get("final_cap"):
+        # the converged capacity, not the initial presize
+        extra["final_cap"] = int(obs["final_cap"])
+    made = node.__dict__.get("_breaker_engine")
+    if made:
+        extra["engine"] = made
+    if ctx.config.devprof == "on" and getattr(ctx.memory_pool, "peak", 0):
+        # the ledger's high-water so far rides the fingerprint into history
+        extra["peak_bytes"] = float(ctx.memory_pool.peak)
+    _runstats.observe(fp, "agg_groups", "aggregate", est, actual,
+                      extra=extra)
+    node.__dict__["_runstats"] = {
+        "site": "agg_groups", "est": est, "actual": actual}
+    _hbo_check_flip(node, ctx)
+
+
+def _hbo_check_flip(node: PlanNode, ctx: ExecContext) -> None:
+    """Count a breaker whose engine verdict would differ on the history
+    just recorded."""
+    from presto_tpu_torch.plan.stats import choose_breaker_engine
+
+    made = node.__dict__.get("_breaker_engine")
+    if not made:
+        return
+    try:
+        would, _ = choose_breaker_engine(node, ctx.catalog,
+                                         ctx.config.breaker_engine,
+                                         hbo="correct")
+    except Exception:  # noqa: BLE001 — the verdict's own fallback
+        return
+    if would != made:
+        _runstats.record_flip("breaker_engine")
+
+
+def _hbo_record_scans(root: PlanNode, ctx: ExecContext) -> None:
+    """Observe per-scan actual rows against the derived estimates
+    (collect_stats runs only: the row counts ride the instrumented
+    stream's host sync; an uninstrumented run records nothing rather
+    than adding a sync of its own)."""
+    if ctx.config.hbo == "off" or not ctx.config.collect_stats \
+            or not ctx.node_stats:
+        return
+
+    def walk(n):
+        if isinstance(n, TableScan):
+            rec = ctx.node_stats.get(id(n))
+            if rec and rec.get("rows"):
+                fp = _runstats.node_fingerprint(n, ctx.catalog)
+                est = _derived_rows(n, ctx.catalog)
+                _runstats.observe(fp, "scan_rows", "tablescan", est,
+                                  float(rec["rows"]))
+                n.__dict__["_runstats"] = {
+                    "site": "scan_rows", "est": est,
+                    "actual": float(rec["rows"])}
+        for c in n.children():
+            walk(c)
+
+    walk(root)
 
 
 def _spill_replay_budget(ctx: ExecContext) -> Optional[int]:
@@ -2302,24 +2673,29 @@ def _execute_join(node: HashJoin, ctx: ExecContext) -> Iterator[Batch]:
     if ctx.config.radix_partitions > 1:
         yield from _radix_join(node, ctx, probe_stream, build_stream, chain)
         return
-    yield from _join_with_spill(node, ctx, probe_stream, build_stream, chain)
+    yield from _join_with_spill(node, ctx, probe_stream, build_stream, chain,
+                                observe=True)
 
 
 def _join_probe(node: HashJoin, ctx: ExecContext, build_in: Optional[Batch],
-                probe_stream: Iterator[Batch], chain) -> Iterator[Batch]:
+                probe_stream: Iterator[Batch], chain,
+                observe: bool = False) -> Iterator[Batch]:
     """Build one table and probe the stream through it (a FULL join's
-    unmatched build rows last)."""
+    unmatched build rows last); `observe` as for _JoinProber."""
     if build_in is None and node.kind == "inner":
         return  # empty build side: an inner join has no output
-    prober = _JoinProber(node, _join_spec(node), ctx, build_in, chain)
+    prober = _JoinProber(node, _join_spec(node), ctx, build_in, chain,
+                         observe=observe)
     for pb in probe_stream:
         yield from prober.probe_batch(pb)
     yield from prober.tail()
+    prober.observe_selectivity()
 
 
 def _join_with_spill(node: HashJoin, ctx: ExecContext,
                      probe_stream: Iterator[Batch],
-                     build_stream: Iterator[Batch], chain) -> Iterator[Batch]:
+                     build_stream: Iterator[Batch], chain,
+                     observe: bool = False) -> Iterator[Batch]:
     """One binary hash join over opened child streams. The build side is
     collected under the pool; crossing the revoke threshold, or a revoke
     request, switches to the partitioned spill (HashBuilderOperator's
@@ -2342,13 +2718,13 @@ def _join_with_spill(node: HashJoin, ctx: ExecContext,
                     "join-build",
                     partition_budget_bytes=_spill_replay_budget(ctx),
                     max_depth=max(0, ctx.config.spill_max_depth),
-                    on_grow=lambda _child, _p: ctx.bump(
-                        "spill.repartitions"))
+                    on_grow=lambda child, _p: _note_spill_repartition(
+                        node, ctx, child))
                 ctx.track_spill(bspiller)
                 for bb in build_batches:
                     bspiller.spill(bb)
                 if rev.take():
-                    ctx.bump("spill.revocations")
+                    _note_spill_revoke(node, ctx, mctx.bytes)
                 build_batches = []
                 mctx.set_bytes(0)
                 bspiller.spill(b)
@@ -2361,7 +2737,7 @@ def _join_with_spill(node: HashJoin, ctx: ExecContext,
         if bspiller is None:
             yield from _join_probe(node, ctx,
                                    _collect_concat(iter(build_batches)),
-                                   probe_stream, chain)
+                                   probe_stream, chain, observe=observe)
             return
 
         # the chained probe side, partitioned by the probe keys: both
@@ -2379,7 +2755,8 @@ def _join_with_spill(node: HashJoin, ctx: ExecContext,
     finally:
         rev.close()
         if bspiller is not None:
-            _record_spill_done(ctx, [bspiller, pspiller])
+            _record_spill_done(ctx, [bspiller, pspiller], node, "spill_join",
+                               ctx.config.spill_partitions, "build")
             bspiller.close()
         if pspiller is not None:
             pspiller.close()
@@ -2452,6 +2829,7 @@ def _replay_spilled_join(node: HashJoin, ctx: ExecContext,
 
         if reversed_:
             ctx.bump("spill.role_reversals")
+            _spill_stats_for(node)["reversed"] += 1
             build_sp, probe_sp = psp, bsp
             jnode = _reversed_join_shim(node)
         else:
@@ -2459,6 +2837,7 @@ def _replay_spilled_join(node: HashJoin, ctx: ExecContext,
             jnode = node
 
         ctx.bump("spill.partitions")
+        _spill_stats_for(node)["partitions"] += 1
         build_in = _collect_concat(build_sp.read_partition(p, dev))
         if build_in is None and node.kind == "inner":
             return
@@ -2580,9 +2959,9 @@ def _radix_join(node: HashJoin, ctx: ExecContext,
                 resident = [(pp, pbytes[pp]) for pp in range(P)
                             if parts[pp] and pp not in bfiles]
                 if resident:
-                    pp, _ = max(resident, key=lambda t: t[1])
+                    pp, nbytes = max(resident, key=lambda t: t[1])
                     spill_build_partition(pp)
-                    ctx.bump("spill.revocations")
+                    _note_spill_revoke(node, ctx, nbytes)
 
         spec = _join_spec(node)
 
@@ -2616,6 +2995,7 @@ def _radix_join(node: HashJoin, ctx: ExecContext,
             yield from probers[p].tail()
         # hybrid-spilled partitions, one resident at a time
         for p in sorted(bfiles):
+            t0 = time.time()
             prober = _JoinProber(node, spec, ctx,
                                  _packed_concat(list(bfiles[p].read(dev))),
                                  ident, fanout_scan=16)
@@ -2624,6 +3004,9 @@ def _radix_join(node: HashJoin, ctx: ExecContext,
                 for sub in _coalesced(pf.read(dev), ctx.config.batch_rows):
                     yield from prober.probe_batch(sub)
             yield from prober.tail()
+            if ctx.tracer.enabled:
+                ctx.tracer.record("radix_spill_replay", "radix_spill_replay",
+                                  t0, time.time(), partition=p)
     finally:
         rev.close()
         _close_radix_files(ctx, list(bfiles.values()) + list(pfiles.values()))
@@ -2701,12 +3084,17 @@ class _JoinProber:
     probe rows; `tail` yields a FULL join's unmatched build rows."""
 
     def __init__(self, node: PlanNode, spec: _JoinSpec, ctx: ExecContext,
-                 build_in: Optional[Batch], chain, fanout_scan: int = 8):
+                 build_in: Optional[Batch], chain, fanout_scan: int = 8,
+                 observe: bool = False):
         """`node` is the plan node the engine is chosen for and stamped on;
-        `spec` the join's shape."""
-        self.spec, self.ctx, self.chain = spec, ctx, chain
+        `spec` the join's shape. `observe`: a whole-build binary join,
+        whose build rows and probe selectivity are HBO observations (a
+        radix, spill-partition, cascade-leg or index prober sees a slice)."""
+        self.node, self.spec, self.ctx, self.chain = node, spec, ctx, chain
         self.lsyms = [n for n, _ in spec.left_output]
         self.rsyms = [n for n, _ in spec.right_output]
+        self.observe = observe and ctx.config.hbo != "off" \
+            and build_in is not None
         if build_in is None:
             # outer join over an empty build side: a table of dead rows
             build_in = empty_batch(self.rsyms,
@@ -2735,6 +3123,60 @@ class _JoinProber:
         self.bm = (torch.zeros(self.table.batch.capacity, dtype=torch.int32,
                                device=ctx.device)
                    if spec.kind == "full" else None)
+        if self.observe:
+            ctx.defer_observation(self._observe_build, self.table.n_rows)
+            # selectivity accumulators: device scalars, read once with the
+            # query's other deferred counts
+            self._n_probe = torch.zeros((), dtype=torch.int64,
+                                        device=ctx.device)
+            self._n_out = torch.zeros((), dtype=torch.int64,
+                                      device=ctx.device)
+
+    def _observe_build(self, actual: float) -> None:
+        """The build side's live rows against the CBO's estimate."""
+        if actual <= 0:
+            return
+        node, ctx = self.node, self.ctx
+        fp = _runstats.node_fingerprint(node, ctx.catalog)
+        if fp is None:
+            return
+        est = _derived_rows(node.right, ctx.catalog)
+        _runstats.observe(fp, "join_build", type(node).__name__.lower(),
+                          est, actual)
+        node.__dict__["_runstats"] = {
+            "site": "join_build", "est": est, "actual": actual}
+        _hbo_check_flip(node, ctx)
+
+    def observe_selectivity(self) -> None:
+        """After the last probe batch: output rows over probe rows, under
+        the join's fingerprint (the site choose_join_mode consults)."""
+        if self.observe:
+            self.ctx.defer_observation(self._observe_selectivity,
+                                       self._n_probe, self._n_out)
+
+    def _observe_selectivity(self, n_probe: float, n_out: float) -> None:
+        if n_probe <= 0:
+            return
+        node, ctx = self.node, self.ctx
+        fp = _runstats.node_fingerprint(node, ctx.catalog)
+        if fp is None:
+            return
+        est = None
+        pst = _derived_rows(node.left, ctx.catalog)
+        ost = _derived_rows(node, ctx.catalog)
+        if pst and ost is not None:
+            est = ost / pst
+        _runstats.observe(fp, "join_probe_sel", type(node).__name__.lower(),
+                          est, n_out / n_probe,
+                          extra={"probe_rows": n_probe})
+
+    def probe_batch(self, pb_raw: Batch) -> Iterator[Batch]:
+        if not self.observe:
+            yield from self._probe_batch(pb_raw)
+            return
+        for out in self._probe_batch(pb_raw, count_probe=True):
+            self._n_out = self._n_out + out.live.sum()
+            yield out
 
     def _counts(self, pba: Batch, fanout: int):
         spec = self.spec
@@ -2763,9 +3205,12 @@ class _JoinProber:
             return out, None
         return out, _scatter_any(pb.capacity, pr, ol)
 
-    def probe_batch(self, pb_raw: Batch) -> Iterator[Batch]:
+    def _probe_batch(self, pb_raw: Batch,
+                     count_probe: bool = False) -> Iterator[Batch]:
         spec, table = self.spec, self.table
         pb = self.chain(pb_raw)
+        if count_probe:
+            self._n_probe = self._n_probe + pb.live.sum()
         pba = align_probe_strings(pb, spec.left_keys, table, spec.right_keys)
         if spec.build_unique:
             if self.engine == "hash":
@@ -2976,12 +3421,61 @@ class _MultiwayProber:
         self.tables = tuple(tables)
         self.fanouts = tuple(0 if sp.unique else 16 for sp in self.specs)
         self.all_unique = all(sp.unique for sp in self.specs)
+        self.observe = ctx.config.hbo != "off"
+        if self.observe:
+            # per-leg build rows under the ORIGINAL binary joins'
+            # fingerprints (stashed by the collapse pass), and device
+            # accumulators for the chain's selectivity
+            for i, fp in enumerate(node.__dict__.get("_leg_fps") or []):
+                if fp is not None and i < len(tables):
+                    ctx.defer_observation(
+                        lambda actual, i=i, fp=fp: self._observe_build(
+                            i, fp, actual), tables[i].n_rows)
+            self._n_probe = torch.zeros((), dtype=torch.int64,
+                                        device=ctx.device)
+            self._n_out = torch.zeros((), dtype=torch.int64,
+                                      device=ctx.device)
+
+    def _observe_build(self, i: int, fp: str, actual: float) -> None:
+        if actual > 0:
+            _runstats.observe(fp, "join_build", "multiwayjoin",
+                              _derived_rows(self.node.builds[i],
+                                            self.ctx.catalog), actual)
+
+    def observe_selectivity(self) -> None:
+        """After the last probe batch: the chain's output rows over probe
+        rows, on the node's fingerprint and the collapsed top join's."""
+        if self.empty or not self.observe:
+            return
+
+        def observe(n_probe: float, n_out: float) -> None:
+            if n_probe <= 0:
+                return
+            for fp in (_runstats.node_fingerprint(self.node,
+                                                  self.ctx.catalog),
+                       self.node.__dict__.get("_origin_fp")):
+                if fp is not None:
+                    _runstats.observe(fp, "join_probe_sel", "multiwayjoin",
+                                      None, n_out / n_probe,
+                                      extra={"probe_rows": n_probe})
+
+        self.ctx.defer_observation(observe, self._n_probe, self._n_out)
 
     def probe_batch(self, pb_raw: Batch) -> Iterator[Batch]:
         if self.empty:
             return
+        if not self.observe:
+            yield from self._probe_batch(pb_raw)
+            return
+        for out in self._probe_batch(pb_raw):
+            self._n_out = self._n_out + out.live.sum()
+            yield out
+
+    def _probe_batch(self, pb_raw: Batch) -> Iterator[Batch]:
         ctx, tables, specs = self.ctx, self.tables, self.specs
         pb = self.chain(pb_raw)
+        if self.observe:
+            self._n_probe = self._n_probe + pb.live.sum()
         if self.all_unique:
             yield multiway_probe_unique(tables, pb, specs, self.psyms,
                                         self.bsyms)
@@ -3031,6 +3525,10 @@ def _mw_binary_cascade(node: MultiwayJoin, ctx: ExecContext,
     resumes its partly consumed stream and it and the later legs run
     through `_join_with_spill`, so a build past the pool spills."""
     ctx.bump("multiway.cascade_fallbacks")
+    if ctx.tracer.enabled:
+        t = time.time()
+        ctx.tracer.record("multiway_cascade", "multiway_cascade", t, t,
+                          node=type(node).__name__)
     stream = probe_stream
     for i, shim in enumerate(_mw_cascade_shims(node)):
         leg_chain = chain if i == 0 else (lambda b: b)
@@ -3094,6 +3592,7 @@ def _execute_multiway_join(node: MultiwayJoin,
         ctx.bump("multiway.fused_dispatches")
         for pb in probe_stream:
             yield from prober.probe_batch(pb)
+        prober.observe_selectivity()
     finally:
         rev.close()
         mctx.set_bytes(0)
@@ -3603,29 +4102,54 @@ def _bind_plan_params(node: PlanNode, bindings) -> None:
 
 
 def run_plan(qp: QueryPlan, ctx: ExecContext) -> Batch:
-    """Execute a QueryPlan to one compacted Batch on the context's device.
-    Whatever spill files the operators left open (a query that failed
-    mid-spill) are closed and unlinked on the way out."""
+    """Execute a QueryPlan to one compacted Batch on the context's device,
+    under the tracer's `query` span. Whatever spill files the operators
+    left open (a query that failed mid-spill) are closed and unlinked on
+    the way out."""
     try:
-        bind_scalar_subqueries(qp, ctx)
-        if not qp.__dict__.get("_colocated_tagged"):
-            # local grouped execution: joins of tables bucketed alike run
-            # bucket by bucket (the fragmenter marks them for a cluster)
-            from presto_tpu_torch.plan.fragmenter import tag_colocated_joins
-
-            tag_colocated_joins(qp.root, ctx.catalog)
-            qp.__dict__["_colocated_tagged"] = True
-        out_node = qp.root
-        merged = _collect_concat(execute_node(out_node.child, ctx))
-        if merged is None:
-            types = dict(out_node.child.output)
-            merged = empty_batch(out_node.symbols,
-                                 [types[s] for s in out_node.symbols],
-                                 ctx.device)
-        merged = merged.select(out_node.symbols).rename(out_node.names)
-        return compact(merged)
+        with _obs_trace.use(ctx.tracer), ctx.tracer.span("query", "query"):
+            if ctx.config.devprof != "on":
+                return _run_plan_inner(qp, ctx)
+            # devprof: allocator watermarks at the query's boundaries and
+            # a ledger-vs-device reconciliation once the pool's peak is
+            # final
+            _devprof.activate(ctx.device)
+            start = _devprof.begin_query()
+            try:
+                return _run_plan_inner(qp, ctx)
+            finally:
+                delta = _devprof.end_query(start)
+                if delta is not None:
+                    ctx.stats["devprof.peak_delta_bytes"] = delta
+                rec = _devprof.reconcile(ctx.memory_pool, plane="worker",
+                                         site="local_query")
+                if rec is not None:
+                    ctx.stats["devprof.drift_ratio"] = rec["driftRatio"]
     finally:
         ctx.cleanup_spill()
+
+
+def _run_plan_inner(qp: QueryPlan, ctx: ExecContext) -> Batch:
+    bind_scalar_subqueries(qp, ctx)
+    if not qp.__dict__.get("_colocated_tagged"):
+        # local grouped execution: joins of tables bucketed alike run
+        # bucket by bucket (the fragmenter marks them for a cluster)
+        from presto_tpu_torch.plan.fragmenter import tag_colocated_joins
+
+        tag_colocated_joins(qp.root, ctx.catalog)
+        qp.__dict__["_colocated_tagged"] = True
+    out_node = qp.root
+    merged = _collect_concat(execute_node(out_node.child, ctx))
+    _hbo_record_scans(qp.root, ctx)
+    if merged is None:
+        types = dict(out_node.child.output)
+        merged = empty_batch(out_node.symbols,
+                             [types[s] for s in out_node.symbols],
+                             ctx.device)
+    merged = merged.select(out_node.symbols).rename(out_node.names)
+    out = compact(merged)
+    ctx.flush_observations()
+    return out
 
 
 def mark_breaker_engines(root: PlanNode, ctx: ExecContext) -> None:

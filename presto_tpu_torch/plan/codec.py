@@ -15,7 +15,7 @@ and each package reads the other's.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from presto_tpu_torch.expr.ir import (
     Call,
@@ -244,6 +244,17 @@ def node_fingerprint(n: PlanNode) -> str:
     import hashlib
 
     return hashlib.sha256(canonical_node_json(n).encode()).hexdigest()
+
+
+def structural_fingerprint(n: PlanNode) -> Optional[str]:
+    """The JAX package's structural sha of a plan node (its
+    exec/programs.py, without a config): node_fingerprint, or None when
+    the subtree has no codec encoding. obs/runstats keys HBO history on
+    it, so both packages key one plan alike."""
+    try:
+        return node_fingerprint(n)
+    except (CodecError, TypeError, ValueError):
+        return None
 
 
 def node_from_json(d: Dict[str, Any]) -> PlanNode:

@@ -100,6 +100,16 @@ def _collapse(top: HashJoin, catalog, mode: str, hbo: str):
     )
     node.__dict__["_join_mode"] = "multiway"
     node.__dict__["_join_mode_why"] = why
+    from presto_tpu_torch.obs import runstats
+
+    # local-only provenance for HBO: the top collapsed join's structural
+    # fingerprint, and the original binary joins' leg by leg, so the
+    # multiway run feeds build rows and probe selectivity back to the
+    # fingerprints choose_join_mode consults
+    node.__dict__["_origin_fp"] = runstats.node_fingerprint(
+        chain_m[-1], catalog)
+    node.__dict__["_leg_fps"] = [
+        runstats.node_fingerprint(j, catalog) for j in chain_m]
     # joins above the eligible prefix stay binary on top of the collapse
     for j in chain[m:]:
         j.left = node

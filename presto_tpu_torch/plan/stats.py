@@ -414,10 +414,13 @@ HASH_MAX_PAYLOAD_STATES = 16
 
 
 def _observed(node: PlanNode, catalog, site: str):
-    """History entry for this node's structural fingerprint. The port
-    keeps no run history yet (no history-based optimization), so the CBO
-    always decides from derived statistics."""
-    return None
+    """History entry for this node's structural fingerprint, or None.
+    Only an ``hbo="correct"`` verdict reads it: the session refuses that
+    value until ROADMAP item 12, so the engine decides from derived
+    statistics and the runtime asks it only to count would-be flips."""
+    from presto_tpu_torch.obs import runstats
+
+    return runstats.lookup_node(node, catalog, site)
 
 
 def _index_table_rows(node: IndexJoin, catalog) -> Optional[float]:

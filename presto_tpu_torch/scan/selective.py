@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from presto_tpu_torch.batch import Batch, Column, round_up_capacity
+from presto_tpu_torch.obs import trace as _obs_trace
 from presto_tpu_torch.scan.adaptive import AdaptiveFilterOrder
 from presto_tpu_torch.scan.filters import ValueFilter
 
@@ -76,6 +77,8 @@ def selective_read(
     the projection (a pruned-away predicate column still filters — that is
     pushdown, not a schema change); the returned Batch carries exactly
     `columns`, sized to the survivor count, not the split."""
+    tracer = _obs_trace.current()
+    cascade_w0 = time.time() if tracer.enabled else 0.0
     filter_cols = list(filters)
     order = adaptive.order(filter_cols) if adaptive is not None else filter_cols
     decoded_f, n = decode(tuple(filter_cols))
@@ -93,6 +96,11 @@ def selective_read(
             adaptive.update(col, rows_in, len(sel),
                             time.perf_counter() - t0)
     m = len(sel)
+    if tracer.enabled:
+        # filter-decode + cascade wall, before any payload materializes
+        tracer.record("scan_filter_cascade", "host_decode", cascade_w0,
+                      time.time(), table=getattr(handle, "name", "?"),
+                      rows_in=int(n), rows_out=int(m))
     if counters is not None and n > m:
         counters("rows_predecode_filtered", n - m)
         counters("bytes_skipped", (n - m) * _bytes_per_row(handle, columns))

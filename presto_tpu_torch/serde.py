@@ -296,6 +296,30 @@ def serialize_batch(b: Batch, compress: bool = True,
     return _MAGIC + struct.pack("<BII", flags, len(hj), len(payload)) + hj + payload
 
 
+def _page_header(data: bytes):
+    """(flags, header without its dicts, raw dicts bytes, payload offset,
+    payload length) of a page. The `dicts` object is parsed apart
+    (`_page_dicts`): no string of the header holds an unescaped quote, so
+    its key and the `radix` key after it are found by their text."""
+    if data[:4] != _MAGIC:
+        raise ValueError("bad page magic")
+    flags, hlen, plen = struct.unpack_from("<BII", data, 4)
+    off = 4 + 9
+    hb = data[off:off + hlen]
+    start = hb.index(b'"dicts":')
+    end = hb.rfind(b',"radix":[')
+    if end < start:
+        end = len(hb) - 1
+    header = json.loads(hb[:start] + b'"dicts":{}' + hb[end:])
+    return flags, header, hb[start + len(b'"dicts":'):end], off + hlen, plen
+
+
+def page_rows(data: bytes) -> int:
+    """The live rows a page carries, from its header alone (no decode, no
+    device)."""
+    return int(_page_header(data)[1]["n"])
+
+
 def deserialize_batch(data: bytes, capacity: Optional[int] = None,
                       device: Union[str, torch.device] = "cpu",
                       dict_resolver: Optional[Callable[[str], List[str]]]
@@ -304,21 +328,9 @@ def deserialize_batch(data: bytes, capacity: Optional[int] = None,
     `capacity` (default: n's power-of-two bucket). `dict_resolver(digest)`
     fetches the values of a by-reference dictionary this process has not
     interned."""
-    if data[:4] != _MAGIC:
-        raise ValueError("bad page magic")
-    flags, hlen, plen = struct.unpack_from("<BII", data, 4)
-    off = 4 + 9
-    # the `dicts` object is parsed apart (`_page_dicts`): no string of the
-    # header holds an unescaped quote, so its key and the `radix` key
-    # after it are found by their text
-    hb = data[off:off + hlen]
-    start = hb.index(b'"dicts":')
-    end = hb.rfind(b',"radix":[')
-    if end < start:
-        end = len(hb) - 1
-    header = json.loads(hb[:start] + b'"dicts":{}' + hb[end:])
-    dicts = _page_dicts(hb[start + len(b'"dicts":'):end], dict_resolver)
-    payload = data[off + hlen:off + hlen + plen]
+    flags, header, raw_dicts, poff, plen = _page_header(data)
+    dicts = _page_dicts(raw_dicts, dict_resolver)
+    payload = data[poff:poff + plen]
     if flags & _FLAG_ZSTD:
         payload = _zd().decompress(payload)
     n = header["n"]

@@ -111,6 +111,9 @@ def main(argv=None):
                         "node without one refuses to start)")
     p.add_argument("--timeout-s", type=float, default=30.0,
                    help="timeout of each HTTP call between the nodes")
+    p.add_argument("--query-event-log", default=None,
+                   help="(coordinator) append query-completion events as "
+                        "JSON lines to this file (EventListener analog)")
     args = p.parse_args(argv)
 
     from presto_tpu_torch import default_device
@@ -132,6 +135,7 @@ def main(argv=None):
             min_workers=args.min_workers,
             cluster_secret=args.secret, device=device,
             timeout_s=args.timeout_s,
+            query_event_log=args.query_event_log,
         )
         print(f"coordinator listening on {coord.url}", flush=True)
         stop = []

@@ -30,8 +30,10 @@ its result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import re
 import threading
 import time
@@ -52,6 +54,13 @@ from presto_tpu_torch.exec.runtime import (
     bind_scalar_subqueries,
     count_batch,
 )
+from presto_tpu_torch.obs import devprof as _devprof
+from presto_tpu_torch.obs import events as _obs_events
+from presto_tpu_torch.obs import inflight as _obs_inflight
+from presto_tpu_torch.obs import lifecycle as _obs_lifecycle
+from presto_tpu_torch.obs import metrics as _obs_metrics
+from presto_tpu_torch.obs import runstats as _runstats
+from presto_tpu_torch.obs import trace as _obs_trace
 from presto_tpu_torch.ops.sort import compact
 from presto_tpu_torch.plan.fragmenter import (
     SINGLE,
@@ -152,6 +161,18 @@ class HeartbeatFailureDetector:
                 n.record_success()
         except Exception:  # noqa: BLE001 — any failure counts against the node
             n.record_failure()
+            return
+        progress = status.get("queryProgress")
+        if progress:
+            # lifecycle plane: the worker's live per-query row counts
+            # (attempt ids resolve through the registry's alias map)
+            _obs_lifecycle.merge_worker_progress(n.node_id, progress)
+        inflight = status.get("queryInflight")
+        if inflight:
+            # inflight plane: per-task operator watermarks, merged per
+            # fragment (seq-guarded: an in-process cluster's publishers
+            # already live in the registry)
+            _obs_inflight.merge_worker(n.node_id, inflight)
 
     def _loop(self):
         while not self._stop.wait(self.interval_s):
@@ -324,8 +345,23 @@ class DistributedScheduler:
 
     def execute(self, query_id: str, dplan: DistributedPlan,
                 workers: List[NodeInfo],
-                config: Optional[ExecConfig] = None):
+                config: Optional[ExecConfig] = None,
+                stats_out: Optional[list] = None, tracer=None,
+                on_batch=None):
+        """Schedule the plan's tasks and stream the root fragment's output.
+
+        `stats_out`, when given, is filled with one (task_id, fragment_id,
+        task_info) per task after the result stream completes — the
+        per-task stats rollup EXPLAIN ANALYZE renders. `tracer` makes every
+        task-create POST carry the query's trace token; after the stream
+        completes each task's span dump is pulled and stitched into query
+        → stage → task. `on_batch(rows)` sees each root batch's live rows,
+        read from its page header."""
         config = config or self.config
+        tracer = tracer or _obs_trace.NOOP
+        trace_parent = tracer.current_parent()
+        trace_hdrs = ({_obs_trace.TRACE_HEADER: tracer.token(trace_parent)}
+                      if tracer.enabled else {})
         deadline = (None if self.query_timeout_s is None
                     else time.monotonic() + self.query_timeout_s)
         if not workers:
@@ -450,7 +486,8 @@ class DistributedScheduler:
             body = json.dumps(task_update_to_json(update)).encode()
             req = urllib.request.Request(
                 f"{w.uri}/v1/task/{tid}", data=body, method="POST",
-                headers=self._headers({"Content-Type": "application/json"}),
+                headers=self._headers({"Content-Type": "application/json",
+                                       **trace_hdrs}),
             )
             with urllib.request.urlopen(req, timeout=self.timeout_s) as r:
                 info = json.loads(r.read())
@@ -529,11 +566,43 @@ class DistributedScheduler:
             client = ExchangeClient(root_urls, device=self.device,
                                     timeout_s=self.timeout_s,
                                     deadline=deadline)
+            stream_w0 = time.time()
+            waited = 0.0
             try:
-                yield from client.batches()
+                it = client.counted_batches()
+                while True:
+                    w0 = time.perf_counter()
+                    try:
+                        b, rows = next(it)
+                    except StopIteration:
+                        break
+                    dt = time.perf_counter() - w0
+                    waited += dt
+                    if tracer.enabled:
+                        _obs_metrics.EXCHANGE_WAIT.observe(
+                            dt, plane="coordinator")
+                    if on_batch is not None:
+                        on_batch(rows)
+                    yield b
                 completed = True
             finally:
                 client.close()
+                if tracer.enabled:
+                    tracer.record("exchange_wait", "exchange_wait",
+                                  stream_w0, time.time(),
+                                  parent_id=trace_parent,
+                                  fragment=dplan.root_fid,
+                                  wait_s=round(waited, 6))
+            if stats_out is not None:
+                for tid, w in created:
+                    m = _TID_RE.match(tid)
+                    stats_out.append((tid, int(m.group(2)) if m else -1,
+                                      self._get_json(
+                                          f"{w.uri}/v1/task/{tid}/status",
+                                          trace_hdrs)))
+            if tracer.enabled:
+                self._collect_task_traces(tracer, created, trace_parent,
+                                          trace_hdrs)
         except ExchangeFailure as e:
             raise QueryFailed(str(e), retryable=not e.task_error) from e
         finally:
@@ -542,6 +611,43 @@ class DistributedScheduler:
             # so worker tasks and buffers are always released
             if not completed:
                 self._abort(created)
+
+    def _get_json(self, url: str, extra_headers: dict) -> dict:
+        req = urllib.request.Request(url, headers=self._headers(extra_headers))
+        with urllib.request.urlopen(req, timeout=self.timeout_s) as r:
+            return json.loads(r.read())
+
+    def _collect_task_traces(self, tracer, created, trace_parent,
+                             extra_headers):
+        """Stitch the distributed trace: pull every created task's span
+        dump (GET /v1/task/{id}/trace, bounded by the HTTP timeout), group
+        by fragment, synthesize one `stage` span per fragment (the envelope
+        of its tasks' spans) under the query root, and re-parent each task
+        root onto its stage span. An unreachable worker leaves a hole: the
+        trace is best effort."""
+        by_fid: Dict[int, list] = {}
+        for tid, w in created:
+            m = _TID_RE.match(tid)
+            fid = int(m.group(2)) if m else -1
+            try:
+                doc = self._get_json(f"{w.uri}/v1/task/{tid}/trace",
+                                     extra_headers)
+            except (urllib.error.URLError, OSError, ValueError):
+                continue
+            if doc.get("spans"):
+                by_fid.setdefault(fid, []).append(doc)
+        for fid in sorted(by_fid):
+            docs = by_fid[fid]
+            starts = [sp["start"] for d in docs for sp in d["spans"]]
+            ends = [(sp["end"] if sp["end"] is not None else sp["start"])
+                    for d in docs for sp in d["spans"]]
+            stage = tracer.record(
+                f"stage-{fid}", "stage", min(starts), max(ends),
+                parent_id=trace_parent, fragment=fid, tasks=len(docs))
+            for d in docs:
+                root = d.get("rootSpanId")
+                tracer.absorb(d["spans"],
+                              {root: stage.span_id} if root else None)
 
     def _wait_finished(self, tasks, timeout_s: float = 600.0,
                        poll_s: float = 0.1, on_lost=None):
@@ -599,6 +705,10 @@ class DistributedScheduler:
                 pass
 
 
+# task ids are "{query_id}.{fragment}.{index}[.r{retry}]"
+_TID_RE = re.compile(r"^(.+)\.(\d+)\.(\d+)(?:\.r\d+)?$")
+
+
 def _fragment_lifespans(node) -> int:
     """Bucket count of a grouped (colocated-join) fragment, else 0
     (StageExecutionDescriptor.isStageGroupedExecution analog)."""
@@ -624,7 +734,11 @@ class Coordinator:
                  cluster_secret: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  timeout_s: float = DEFAULT_TIMEOUT_S,
-                 query_timeout_s: Optional[float] = None):
+                 query_timeout_s: Optional[float] = None,
+                 query_event_log: Optional[str] = None,
+                 slow_query_log: Optional[str] = None,
+                 slow_query_threshold_s: float = 0.0,
+                 events_log: Optional[str] = None):
         from presto_tpu_torch.server.protocol import StatementProtocol
         from presto_tpu_torch.server.querymanager import (
             QueryManager,
@@ -658,6 +772,20 @@ class Coordinator:
                                                   session))
 
         self.query_manager = QueryManager(execute_fn)
+        # query-id → Tracer: /v1/query/{id}/trace resolves here (scheduler
+        # attempt ids alias to the same trace)
+        self.trace_registry = _obs_trace.TraceRegistry()
+        # stall forensics get the victim's open span stack; configure()
+        # never arms the plane
+        _obs_inflight.configure(span_provider=lambda qid: (
+            tr.spans() if (tr := self.trace_registry.get(qid)) is not None
+            else None))
+        if events_log:
+            # the cluster event stream's JSONL sink (/v1/events mirrors the
+            # in-memory ring regardless)
+            _obs_events.EVENTS.configure(path=events_log)
+        self._add_listeners(query_event_log, slow_query_log,
+                            slow_query_threshold_s)
         # bind the socket first (determines self.url), wire the protocol,
         # THEN start serving — no request can observe a half-built coordinator
         self._bind_http(port)
@@ -670,6 +798,66 @@ class Coordinator:
                          name="coordinator-http").start()
         self.failure_detector.start()
 
+    def _add_listeners(self, query_event_log: Optional[str],
+                       slow_query_log: Optional[str],
+                       slow_query_threshold_s: float) -> None:
+        """Query-completion listeners, in the JAX package's order: the
+        lifecycle plane first (SLO histograms, objective violations and
+        the regression flag must exist before the slow log reads them),
+        the latency histogram, the slow-query log, the event log."""
+        qm = self.query_manager
+
+        def lifecycle_complete(event: str, info):
+            if event != "queryCompleted":
+                return
+            tr = self.trace_registry.get(info.query_id)
+            _obs_lifecycle.complete(
+                info, spans=tr.spans() if tr is not None else None)
+
+        qm.listeners.append(lifecycle_complete)
+
+        def record_latency(event: str, info):
+            if event == "queryCompleted":
+                _obs_metrics.QUERY_LATENCY.observe(
+                    max(0.0, (info.end_time or time.time())
+                        - info.create_time),
+                    plane="coordinator", state=info.state)
+
+        qm.listeners.append(record_latency)
+        if slow_query_log:
+            slow = _obs_events.SlowQueryLogger(
+                slow_query_log, threshold_s=slow_query_threshold_s)
+
+            def log_slow(event: str, info):
+                if event != "queryCompleted":
+                    return
+                tr = self.trace_registry.get(info.query_id)
+                mem = ({"device": _devprof.device_memory_doc()}
+                       if _devprof.active() else None)
+                extra = _obs_lifecycle.slow_log_annotation(info.query_id)
+                inf = _obs_inflight.slow_log_annotation(info.query_id)
+                if inf:
+                    # the doctor verdict and straggler docs, when the
+                    # inflight plane saw the query
+                    extra = {**(extra or {}), **inf}
+                slow.log(info, tr.spans() if tr is not None else None,
+                         memory=mem, extra=extra)
+
+            qm.listeners.append(log_slow)
+        if query_event_log:
+            # query audit stream (reference: the EventListener SPI's
+            # QueryCreated/QueryCompleted events, shipped to a log)
+            lock = threading.Lock()
+
+            def log_event(event: str, info):
+                line = json.dumps({"event": event, "ts": time.time(),
+                                   **dataclasses.asdict(info)}, default=str)
+                with lock:
+                    with open(query_event_log, "a") as fh:
+                        fh.write(line + "\n")
+
+            qm.listeners.append(log_event)
+
     def _explain(self, sql: str, analyze: bool, session,
                  etype: Optional[str] = None) -> str:
         if etype not in (None, "distributed", "logical", "validate"):
@@ -677,10 +865,10 @@ class Coordinator:
                 f"unknown EXPLAIN type {etype!r} "
                 "(supported: DISTRIBUTED, LOGICAL, VALIDATE)")
         if analyze:
-            raise NotImplementedError(
-                "EXPLAIN ANALYZE is not supported by presto_tpu_torch yet — "
-                "needs the observability and analysis planes (ROADMAP "
-                "item 14)")
+            if etype not in (None, "distributed"):
+                raise ValueError(
+                    "EXPLAIN ANALYZE only supports TYPE DISTRIBUTED")
+            return self.explain_analyze_distributed(sql, session)
         from presto_tpu_torch.plan.builder import plan_query
 
         if etype == "validate":
@@ -694,6 +882,81 @@ class Coordinator:
                                            self.catalog).root)
         # default / TYPE DISTRIBUTED
         return self.plan_distributed(sql, session).to_string()
+
+    def explain_analyze_distributed(self, sql: str, session=None) -> str:
+        """Run the query on the cluster with per-operator accounting and
+        render a per-fragment, per-task stats rollup (the QueryStats/
+        OperatorStats view of the reference's EXPLAIN ANALYZE)."""
+        dplan = self.plan_distributed(sql, session)
+        cfg = dataclasses.replace(
+            session.exec_config() if session else self.config,
+            collect_stats=True)
+        stats: list = []
+        self.size_monitor.wait_for_minimum(timeout_s=self.timeout_s)
+        qid = self.next_query_id()
+        workers = self.node_manager.active_nodes()
+        session_qid = getattr(session, "query_id", "") or ""
+        entry = _obs_lifecycle.get(session_qid) if session_qid else None
+        if entry is not None:
+            _obs_lifecycle.mark(session_qid, "compiling")
+            _obs_lifecycle.alias(qid, entry.query_id)
+        if session_qid and _obs_inflight.get(session_qid) is not None:
+            # task publishers key by the scheduler attempt id; route them
+            # to the session's inflight entry
+            _obs_inflight.alias(qid, session_qid)
+        tracer = _obs_trace.NOOP
+        if cfg.tracing:
+            tracer = _obs_trace.Tracer(trace_id=session_qid or None)
+            self.trace_registry.register(tracer)
+            self.trace_registry.alias(qid, tracer.trace_id)
+        with _obs_trace.use(tracer), tracer.span("query", "query",
+                                                 sql=sql[:200]):
+            first = True
+            for _ in self.scheduler.execute(qid, dplan, workers, cfg,
+                                            stats_out=stats, tracer=tracer):
+                if first and entry is not None:
+                    _obs_lifecycle.mark(session_qid, "executing")
+                    first = False
+        lines = []
+        if entry is not None:
+            seg = entry.timeline.segments()
+            lines += [
+                "-- lifecycle --",
+                "  " + "  ".join(
+                    f"{k}={seg[k]:.3f}s"
+                    for k in ("queue_wait", "plan", "compile", "exec",
+                              "drain", "e2e")),
+                "",
+            ]
+        # query doctor: ranked bottleneck attribution over lifecycle and
+        # inflight telemetry (present only when a plane saw the query)
+        doctor = _obs_inflight.analyze(
+            session_qid or qid,
+            spans=tracer.spans() if tracer.enabled else None)
+        if doctor is not None and doctor.get("verdict"):
+            lines += ["-- doctor --", "  " + doctor["verdict"]]
+            for c in doctor.get("causes", [])[1:3]:
+                lines.append(
+                    f"    also: {c['cause']}"
+                    f" ({c['score']:.0%}) {c.get('detail', '')}".rstrip())
+            lines.append("")
+        lines += [dplan.to_string(), "", "-- task execution profile --"]
+        by_fid: Dict[int, list] = {}
+        for tid, fid, info in stats:
+            by_fid.setdefault(fid, []).append((tid, info))
+        for fid in sorted(by_fid):
+            lines.append(f"fragment {fid}:")
+            for tid, info in sorted(by_fid[fid]):
+                lines.append(f"  task {tid} [{info.get('state')}]")
+                for row in info.get("stats") or []:
+                    line = (
+                        f"    {row['node']:<16} rows={int(row['rows']):>12,}"
+                        f" batches={int(row['batches']):>6}"
+                        f" wall={row['wall_s']:.3f}s")
+                    if row.get("bytes"):
+                        line += f" bytes={int(row['bytes']):,}"
+                    lines.append(line)
+        return "\n".join(lines)
 
     # -- http -------------------------------------------------------------
 
@@ -742,6 +1005,20 @@ class Coordinator:
                     return self._json({"ok": True})
                 self._json({"error": "not found"}, 404)
 
+            def _text(self, body: str, content_type: str, code=200):
+                data = body.encode()
+                self.send_response(code)
+                self.send_header("Content-Type", content_type)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _state(self, qid: str) -> Optional[str]:
+                try:
+                    return coord.query_manager.get(qid).state
+                except KeyError:
+                    return None
+
             def do_GET(self):
                 m = re.match(r"^/v1/statement/([^/]+)/(\d+)$", self.path)
                 if m:
@@ -751,6 +1028,71 @@ class Coordinator:
                         )
                     except KeyError:
                         return self._json({"error": "unknown query"}, 404)
+                m = re.match(r"^/v1/query/([^/]+)/trace$", self.path)
+                if m:
+                    tr = coord.trace_registry.get(m.group(1))
+                    if tr is None:
+                        return self._json({"error": "no trace for query"},
+                                          404)
+                    return self._json(tr.to_json())
+                m = re.match(r"^/v1/query/([^/]+)/progress$", self.path)
+                if m:
+                    qid = m.group(1)
+                    doc = _obs_lifecycle.progress_doc(
+                        qid, state=self._state(qid))
+                    if doc is None:
+                        return self._json(
+                            {"error": "no lifecycle for query "
+                                      "(unknown id or lifecycle=off)"}, 404)
+                    return self._json(doc)
+                m = re.match(r"^/v1/query/([^/]+)/inflight$", self.path)
+                if m:
+                    doc = _obs_inflight.snapshot_doc(m.group(1))
+                    if doc is None:
+                        return self._json(
+                            {"error": "no inflight telemetry for query "
+                                      "(unknown id or inflight=off)"}, 404)
+                    return self._json(doc)
+                m = re.match(r"^/v1/query/([^/]+)/doctor$", self.path)
+                if m:
+                    qid = m.group(1)
+                    tr = coord.trace_registry.get(qid)
+                    doc = _obs_inflight.analyze(
+                        qid, spans=tr.spans() if tr is not None else None,
+                        state=self._state(qid))
+                    if doc is None:
+                        return self._json(
+                            {"error": "no telemetry for query (unknown id "
+                                      "or lifecycle+inflight off)"}, 404)
+                    return self._json(doc)
+                m = re.match(r"^/v1/events(?:\?(.*))?$", self.path)
+                if m:
+                    import urllib.parse as _up
+
+                    q = _up.parse_qs(m.group(1) or "")
+
+                    def _one(name, cast=str, default=None):
+                        vals = q.get(name)
+                        try:
+                            return cast(vals[0]) if vals else default
+                        except (TypeError, ValueError):
+                            return default
+
+                    return self._json({
+                        "lastSeq": _obs_events.EVENTS.last_seq(),
+                        "events": _obs_events.EVENTS.events(
+                            since=_one("since", int, 0),
+                            query_id=_one("queryId"),
+                            kind=_one("kind"),
+                            limit=_one("limit", int, 1000)),
+                    })
+                if self.path == "/v1/metrics":
+                    from presto_tpu_torch.server.metrics import (
+                        coordinator_metrics,
+                    )
+
+                    return self._text(coordinator_metrics(coord),
+                                      "text/plain; version=0.0.4")
                 m = re.match(r"^/v1/query/([^/]+)$", self.path)
                 if m:
                     try:
@@ -802,11 +1144,39 @@ class Coordinator:
             return f"q{self._query_seq}"
 
     def execute_distributed(self, dplan: DistributedPlan,
-                            config: Optional[ExecConfig] = None):
+                            config: Optional[ExecConfig] = None,
+                            tracer=None):
         self.size_monitor.wait_for_minimum(timeout_s=self.timeout_s)
         qid = self.next_query_id()
         workers = self.node_manager.active_nodes()
-        yield from self.scheduler.execute(qid, dplan, workers, config)
+        if tracer is None:
+            tracer = _obs_trace.current()
+        if tracer.enabled:
+            # task ids embed this scheduler attempt id: make it resolve to
+            # the query's trace, and (trace ids are the serving query id)
+            # to its lifecycle and inflight entries, so worker heartbeats
+            # keyed by the attempt reach the right slots
+            self.trace_registry.alias(qid, tracer.trace_id)
+            _obs_lifecycle.alias(qid, tracer.trace_id)
+            _obs_inflight.alias(qid, tracer.trace_id)
+        entry = _obs_lifecycle.get(qid)
+        if entry is None:
+            yield from self.scheduler.execute(qid, dplan, workers, config,
+                                              tracer=tracer)
+            return
+        # lifecycle plane: the first root batch is the compiling→executing
+        # boundary; every batch feeds the live progress counts
+        first = True
+        for b in self.scheduler.execute(qid, dplan, workers, config,
+                                        tracer=tracer,
+                                        on_batch=entry.observe_batch):
+            if first:
+                _obs_lifecycle.mark(entry.query_id, "executing")
+                first = False
+            yield b
+        if first:
+            # a stream without batches still crossed into execution
+            _obs_lifecycle.mark(entry.query_id, "executing")
 
     def _try_scaled_write(self, stmt, config) -> Optional[Batch]:
         """Scaled writers (SCALED_WRITER_DISTRIBUTION): CTAS into a
@@ -959,10 +1329,65 @@ class Coordinator:
                            [types[n] for n in dplan.output_names],
                            self.device)
 
+    def _profile_capture(self, session):
+        """Context manager for the `profile` session property: a
+        torch.profiler Chrome trace of the query (CPU and, on a card, CUDA
+        activity) under PRESTO_TPU_CACHE_DIR/profiles/<query_id>.json,
+        surfaced as profileUri in the statement response. No-op with a
+        warning without a cache dir — the query still runs."""
+        import warnings
+
+        qid = getattr(session, "query_id", "") or "adhoc"
+        base = os.environ.get("PRESTO_TPU_CACHE_DIR")
+        if not base:
+            warnings.warn("profile=true is a no-op: PRESTO_TPU_CACHE_DIR "
+                          "is not set", stacklevel=3)
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def run():
+            from torch.profiler import ProfilerActivity, profile
+
+            pdir = os.path.join(base, "profiles")
+            os.makedirs(pdir, exist_ok=True)
+            path = os.path.join(pdir, f"{qid}.json")
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            with profile(activities=acts) as prof:
+                yield
+            prof.export_chrome_trace(path)
+            _devprof.register_profile(qid, path)
+
+        return run()
+
     def run_batch(self, sql: str, config: Optional[ExecConfig] = None,
                   session=None, stmt=None) -> Batch:
         """`stmt` overrides parsing — the bound AST of a prepared
         statement (EXECUTE path; no SQL re-rendering)."""
+        cfg = config or self.config
+        if cfg.profile:
+            with self._profile_capture(session):
+                return self._run_batch_traced(sql, config, session, stmt)
+        return self._run_batch_traced(sql, config, session, stmt)
+
+    def _run_batch_traced(self, sql: str, config: Optional[ExecConfig],
+                          session, stmt) -> Batch:
+        if not (config or self.config).tracing:
+            return self._run_batch_inner(sql, config, session, stmt)
+        # trace id = the session query id when there is one, so
+        # /v1/query/{id}/trace resolves directly; the root span covers
+        # planning, scheduling and the result merge
+        tracer = _obs_trace.Tracer(
+            trace_id=getattr(session, "query_id", "") or None)
+        self.trace_registry.register(tracer)
+        with _obs_trace.use(tracer), tracer.span(
+                "query", "query", sql=(sql or "")[:200],
+                user=getattr(session, "user", None) or "user"):
+            return self._run_batch_inner(sql, config, session, stmt)
+
+    def _run_batch_inner(self, sql: str, config: Optional[ExecConfig],
+                         session, stmt) -> Batch:
         from presto_tpu_torch.exec.runner import (
             execute_data_definition,
             is_ddl,
@@ -999,6 +1424,15 @@ class Coordinator:
                                            self.device)
 
         dplan = self.plan_distributed(sql, session, stmt=stmt)
+        session_qid = getattr(session, "query_id", "") or ""
+        if session_qid and _obs_lifecycle.get(session_qid) is not None:
+            # the plan's structural fingerprint gives progress its HBO
+            # prediction and completion its regression baseline; plan
+            # ready = the plan→compile boundary
+            _obs_lifecycle.set_fingerprint(
+                session_qid, _runstats.node_fingerprint(
+                    dplan.fragments[dplan.root_fid].root, self.catalog))
+            _obs_lifecycle.mark(session_qid, "compiling")
         merged = _collect_concat(iter(self._execute_with_retry(dplan, config)))
         return compact(merged if merged is not None
                        else self._empty_result(dplan))

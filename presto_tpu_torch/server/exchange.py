@@ -24,12 +24,12 @@ import threading
 import time
 import urllib.error
 import urllib.request
-from typing import Iterator, List, Optional, Union
+from typing import Iterator, List, Optional, Tuple, Union
 
 import torch
 
 from presto_tpu_torch.batch import Batch
-from presto_tpu_torch.serde import deserialize_batch
+from presto_tpu_torch.serde import deserialize_batch, page_rows
 
 # HTTP timeout of one exchange request (the JAX package's 30 s)
 DEFAULT_TIMEOUT_S = 30.0
@@ -206,6 +206,14 @@ class ExchangeClient:
         for page in self.pages():
             yield deserialize_batch(page, device=self.device,
                                     dict_resolver=self._resolve_dict)
+
+    def counted_batches(self) -> Iterator[Tuple[Batch, int]]:
+        """(batch, live rows) pairs: the count comes from the page header,
+        so reading it costs no device sync."""
+        for page in self.pages():
+            yield (deserialize_batch(page, device=self.device,
+                                     dict_resolver=self._resolve_dict),
+                   page_rows(page))
 
     def close(self):
         self.closed = True

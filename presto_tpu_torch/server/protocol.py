@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
+from presto_tpu_torch.obs import devprof as _devprof
 from presto_tpu_torch.server.querymanager import (
     CANCELED,
     EXPIRED,
@@ -333,6 +334,7 @@ class StatementProtocol:
         out: dict = {
             "id": qe.query_id,
             "infoUri": f"{self.base_url}/v1/query/{qe.query_id}",
+            "traceUri": f"{self.base_url}/v1/query/{qe.query_id}/trace",
             "stats": {
                 "state": qe.state,
                 "queued": qe.state == "QUEUED",
@@ -341,6 +343,14 @@ class StatementProtocol:
                 ),
             },
         }
+        if qe.timeline is not None:
+            # lifecycle plane only: the live fraction-complete endpoint
+            out["progressUri"] = (
+                f"{self.base_url}/v1/query/{qe.query_id}/progress")
+        # `profile` session property: the query's torch.profiler trace
+        pfile = _devprof.profile_for(qe.query_id)
+        if pfile:
+            out["profileUri"] = f"file://{pfile}"
         if qe.state == FAILED:
             # user mistakes (parse/analysis/session/admission) are USER_ERROR,
             # everything else INTERNAL (reference: StandardErrorCode types)

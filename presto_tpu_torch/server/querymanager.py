@@ -8,9 +8,12 @@ distributed scheduler for a cluster — via the `execute_fn` the manager is
 constructed with.
 
 The JAX package's server/querymanager.py without its admission control
-(resource groups, which come with the cluster services, ROADMAP item 17)
-and its lifecycle and inflight telemetry (ROADMAP item 14): a query
-starts as soon as it is created.
+(resource groups, which come with the cluster services, ROADMAP item 17):
+a query is admitted as soon as it is created, under the label the JAX
+package gives a query with no resource-group configuration ("global").
+With the `lifecycle` session property on, every transition lands on the
+query's timeline (obs/lifecycle.py); with `inflight` on, the query is
+registered with the mid-flight telemetry plane (obs/inflight.py).
 """
 
 from __future__ import annotations
@@ -21,7 +24,13 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional
 
+from presto_tpu_torch.obs import inflight as _inflight
+from presto_tpu_torch.obs import lifecycle as _lifecycle
 from presto_tpu_torch.server.session import Session
+
+# the JAX package's root resource group, which takes every query when no
+# resource groups are configured
+DEFAULT_GROUP = "global"
 
 # state lattice (QueryState.java) — terminal states are absorbing;
 # EXPIRED is the enforcement loop's terminal (query_max_run_time_s),
@@ -78,6 +87,9 @@ class QueryExecution:
         self.resource_group: Optional[str] = None
         self._cancel_requested = False
         self._listeners: List[Callable[[str], None]] = []
+        # lifecycle plane: the registry entry's Timeline when the session
+        # runs with lifecycle=on, else None (every hook a no-op)
+        self.timeline = None
         self.expired_limit_s: Optional[float] = None
         self.expired_elapsed_s: Optional[float] = None
 
@@ -91,6 +103,12 @@ class QueryExecution:
             if new in TERMINAL:
                 self.end_time = time.time()
             listeners = list(self._listeners)
+        if self.timeline is not None:
+            attrs = {}
+            if new == EXPIRED and self.expired_limit_s is not None:
+                attrs = {"limitS": self.expired_limit_s,
+                         "elapsedS": self.expired_elapsed_s}
+            _lifecycle.transition(self.query_id, new, **attrs)
         for fn in listeners:
             fn(new)
         if new in TERMINAL:
@@ -152,6 +170,8 @@ class QueryExecution:
     def info(self) -> QueryInfo:
         stats: Dict[str, Any] = {"elapsed_s": round(
             (self.end_time or time.time()) - self.create_time, 6)}
+        if self.timeline is not None:
+            stats["lifecycle"] = self.timeline.doc()
         if self.expired_limit_s is not None:
             stats["expired"] = {"limitS": self.expired_limit_s,
                                 "elapsedS": self.expired_elapsed_s}
@@ -200,17 +220,35 @@ class QueryManager:
         """execute_fn override supports coordinator-side statements
         (SHOW/SET/EXPLAIN — DataDefinitionExecution analog)."""
         qe = QueryExecution(session, sql, execute_fn or self._execute_fn)
+        if str(session.get("lifecycle")).lower() == "on":
+            qe.timeline = _lifecycle.register(
+                qe.query_id, group=DEFAULT_GROUP,
+                objectives=_lifecycle.parse_objectives(
+                    session.get("slo_objectives")),
+                regression_factor=float(
+                    session.get("latency_regression_factor"))).timeline
+        if str(session.get("inflight")).lower() == "on":
+            # operator heartbeats, the stall/straggler watcher and the
+            # query doctor; registering arms the plane
+            _inflight.register(
+                qe.query_id, group=DEFAULT_GROUP,
+                stall_threshold_s=float(session.get("stall_threshold_s")),
+                straggler_factor=float(session.get("straggler_factor")))
         with self._lock:
             self._queries[qe.query_id] = qe
         self._emit("queryCreated", qe)
         qe.add_state_listener(
             lambda state, qe=qe: self._on_state(qe, state))
+        _lifecycle.mark(qe.query_id, "admitted")
         qe.start()
         self._expire_old()
         return qe
 
     def _on_state(self, qe: QueryExecution, state: str):
         if state in TERMINAL:
+            # close any open stall episode and stop the watcher from
+            # flagging the finished query
+            _inflight.finish(qe.query_id)
             self._emit("queryCompleted", qe)
 
     def _emit(self, event: str, qe: QueryExecution):

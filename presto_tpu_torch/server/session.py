@@ -10,9 +10,10 @@ FeaturesConfig-derived per-query settings.
 
 The JAX package's server/session.py: the same property names, types,
 defaults and checks. A property whose feature the port does not have yet
-(`MISSING`: the compile plane, run history, the observability planes, the
-cluster services) is listed like the others but refuses any value with a
-SessionPropertyError naming the ROADMAP item that brings it.
+(`MISSING`: the compile plane, adaptive execution, the cluster services)
+is listed like the others but refuses any value with a
+SessionPropertyError naming the ROADMAP item that brings it; `hbo`
+refuses only `correct`, the history-corrected optimizer.
 """
 
 from __future__ import annotations
@@ -30,20 +31,15 @@ class SessionPropertyError(ValueError):
 
 
 _ITEM_12 = "program caching, adaptive execution and HBO (ROADMAP item 12)"
-_ITEM_14 = "the observability and analysis planes (ROADMAP item 14)"
 _ITEM_17 = "the cluster services (ROADMAP item 17)"
 # property -> what the port lacks for it
 MISSING: Dict[str, str] = {
     "join_out_capacity": "a join output chunk other than the probe "
                          "batch's capacity",
-    "collect_stats": _ITEM_14, "tracing": _ITEM_14, "devprof": _ITEM_14,
-    "profile": _ITEM_14, "lifecycle": _ITEM_14, "slo_objectives": _ITEM_14,
-    "latency_regression_factor": _ITEM_14, "inflight": _ITEM_14,
-    "stall_threshold_s": _ITEM_14, "straggler_factor": _ITEM_14,
     "donate_stepping": _ITEM_12, "precompile_workers": _ITEM_12,
     "max_compiled_shapes_scan": _ITEM_12,
     "max_compiled_shapes_breaker": _ITEM_12, "fragment_fusion": _ITEM_12,
-    "fragment_window": _ITEM_12, "hbo": _ITEM_12,
+    "fragment_window": _ITEM_12,
     "shape_bucketing": _ITEM_12, "compile_farm": _ITEM_12,
     "adaptive": _ITEM_12,
     "query_priority": _ITEM_17, "result_cache": _ITEM_17,
@@ -110,6 +106,29 @@ def _enum(name: str, allowed: List[str]) -> Callable[[Any], None]:
     def check(v):
         if v is not None and v.upper() not in allowed:
             raise SessionPropertyError(f"{name}: must be one of {allowed}, got {v!r}")
+
+    return check
+
+
+def _hbo(v) -> None:
+    """The JAX package's hbo values; `correct` feeds history back into
+    the optimizer, which the port does not have yet."""
+    _enum("hbo", ["OFF", "OBSERVE", "CORRECT"])(v)
+    if v is not None and v.upper() == "CORRECT":
+        raise SessionPropertyError(
+            "hbo: correct is not supported by presto_tpu_torch yet — "
+            f"needs {_ITEM_12}")
+
+
+def _objectives(name: str) -> Callable[[Any], None]:
+    def check(v):
+        if not v:
+            return
+        from presto_tpu_torch.obs.lifecycle import parse_objectives
+        try:
+            parse_objectives(v)
+        except ValueError as e:
+            raise SessionPropertyError(f"{name}: {e}")
 
     return check
 
@@ -275,22 +294,20 @@ class SystemSessionProperties:
                              "on structural fingerprints; correct also feeds "
                              "observed values back into the CBO on a repeat "
                              "of the same structure", str, "observe",
-                             validator=_enum("hbo",
-                                             ["OFF", "OBSERVE", "CORRECT"])),
-            # device cost/HBM accounting plane (obs/devprof.py)
+                             validator=_hbo),
+            # device memory accounting plane (obs/devprof.py)
             PropertyMetadata("devprof",
-                             "Device cost & HBM accounting: off reproduces "
-                             "pre-devprof behavior bit-for-bit; on records "
-                             "XLA cost/memory analysis per compiled program, "
-                             "samples the device HBM watermark, and "
-                             "reconciles it against the memory-pool ledger",
+                             "Device memory accounting: off reproduces "
+                             "pre-devprof behavior bit-for-bit; on samples "
+                             "the card's allocator watermark and reconciles "
+                             "it against the memory-pool ledger",
                              str, "OFF",
                              validator=_enum("devprof", ["OFF", "ON"])),
             PropertyMetadata("profile",
-                             "Capture a jax.profiler trace per query under "
-                             "PRESTO_TPU_CACHE_DIR (profileUri in the "
-                             "statement response; no-op with a warning when "
-                             "the profiler or cache dir is unavailable)",
+                             "Capture a torch.profiler Chrome trace per "
+                             "query under PRESTO_TPU_CACHE_DIR (profileUri "
+                             "in the statement response; no-op with a "
+                             "warning when the cache dir is unavailable)",
                              bool, False),
             # serving-plane SLO telemetry (obs/lifecycle.py)
             PropertyMetadata("lifecycle",
@@ -309,7 +326,7 @@ class SystemSessionProperties:
                              "compile, exec, drain, e2e); a completed query "
                              "whose segment exceeds its bound increments "
                              "presto_tpu_slo_violations_total{group,segment}",
-                             str, ""),
+                             str, "", validator=_objectives("slo_objectives")),
             PropertyMetadata("latency_regression_factor",
                              "Flag a completed query as a latency regression "
                              "when its e2e wall is at least this many times "
@@ -490,4 +507,13 @@ class Session:
                 if self.get("spill_dir_budget_mb") else None),
             breaker_engine=self.get("breaker_engine").lower(),
             join_mode=self.get("join_mode").lower(),
+            collect_stats=self.get("collect_stats"),
+            tracing=self.get("tracing"),
+            hbo=self.get("hbo").lower(),
+            devprof=self.get("devprof").lower(),
+            profile=self.get("profile"),
+            lifecycle=self.get("lifecycle").lower(),
+            inflight=self.get("inflight").lower(),
+            stall_threshold_s=self.get("stall_threshold_s"),
+            straggler_factor=self.get("straggler_factor"),
         )

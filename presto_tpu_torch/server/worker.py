@@ -43,6 +43,10 @@ from presto_tpu_torch.batch import Batch
 from presto_tpu_torch.connector import Catalog
 from presto_tpu_torch.exec.runtime import ExecConfig, ExecContext, execute_node
 from presto_tpu_torch.memory import MemoryPool, QueryScopedPool
+from presto_tpu_torch.obs import devprof as _devprof
+from presto_tpu_torch.obs import inflight as _obs_inflight
+from presto_tpu_torch.obs import metrics as _obs_metrics
+from presto_tpu_torch.obs import trace as _obs_trace
 from presto_tpu_torch.ops.partition import partition_ids
 from presto_tpu_torch.ops.radix import radix_ids
 from presto_tpu_torch.plan.fragmenter import (
@@ -159,7 +163,8 @@ class TaskExecution:
 
     def __init__(self, task_id: str, update: TaskUpdate, catalog: Catalog,
                  device: torch.device, memory_pool=None, spill_manager=None,
-                 executor=None, timeout_s: float = DEFAULT_TIMEOUT_S):
+                 executor=None, timeout_s: float = DEFAULT_TIMEOUT_S,
+                 trace_token: Optional[str] = None, node_id: str = ""):
         self.task_id = task_id
         self.update = update
         self.catalog = catalog
@@ -168,8 +173,36 @@ class TaskExecution:
         self.spill_manager = spill_manager
         self.executor = executor
         self.timeout_s = timeout_s
+        self.node_id = node_id
+        # the trace token travels in the X-Presto-Tpu-Trace header, not
+        # the TaskUpdate body. Each task records into its own tracer; the
+        # coordinator pulls the dump via GET /v1/task/{id}/trace and
+        # stitches the query tree
+        self.tracer = _obs_trace.NOOP
+        self._trace_parent: Optional[str] = None
+        if trace_token and update.config.get("tracing", True):
+            trace_id, parent = _obs_trace.parse_token(trace_token)
+            self.tracer = _obs_trace.Tracer(trace_id=trace_id)
+            self._trace_parent = parent
         self.state = "running"
         self.error: Optional[str] = None
+        self.stats_report: Optional[list] = None  # per-operator rows
+        # lifecycle plane (obs/lifecycle.py): count emitted rows/batches
+        # so heartbeats carry live query progress; lifecycle=off keeps the
+        # sink path and heartbeat doc as they were
+        self._count_progress = str(
+            update.config.get("lifecycle", "on")).lower() == "on"
+        self.rows_emitted = 0
+        self.batches_emitted = 0
+        # mid-flight telemetry plane (obs/inflight.py): the per-task
+        # publisher operators heartbeat through; inflight=off keeps the
+        # task path as it was
+        self._inflight = None
+        if str(update.config.get("inflight", "off")).lower() == "on":
+            m = _TASK_ID_RE.match(task_id)
+            self._inflight = _obs_inflight.task(
+                m.group(1) if m else task_id, task_id,
+                fragment=int(m.group(2)) if m else 0)
         f = update.fragment
         self.buffer = OutputBuffer(
             update.n_out_partitions,
@@ -192,7 +225,34 @@ class TaskExecution:
         client = ExchangeClient(urls, device=self.device,
                                 timeout_s=self.timeout_s)
         self._clients.append(client)
-        return client.batches()
+        if not self.tracer.enabled:
+            return client.batches()
+        return self._traced_exchange(client, fragment_id)
+
+    def _traced_exchange(self, client: ExchangeClient, fragment_id: int):
+        """Exchange pull with consumer-blocked time accounted: each next()
+        wall goes to the exchange-wait histogram, and one exchange_wait
+        span records the stream envelope with total blocked seconds."""
+        it = client.batches()
+        parent = self.tracer.current_parent()
+        start = time.time()
+        waited = 0.0
+        try:
+            while True:
+                w0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    break
+                dt = time.perf_counter() - w0
+                waited += dt
+                _obs_metrics.EXCHANGE_WAIT.observe(dt, plane="worker")
+                yield b
+        finally:
+            self.tracer.record("exchange_wait", "exchange_wait", start,
+                               time.time(), parent_id=parent,
+                               fragment=fragment_id,
+                               wait_s=round(waited, 6))
 
     def _run(self):
         try:
@@ -201,7 +261,17 @@ class TaskExecution:
                               memory_pool=self.memory_pool,
                               spill_manager=self.spill_manager)
             try:
-                self._run_with_ctx(ctx)
+                if self.tracer.enabled:
+                    # created_at → first execution work = schedule delay
+                    _obs_metrics.TASK_SCHEDULE_DELAY.observe(
+                        max(0.0, time.time() - self.created_at),
+                        plane="worker", node=self.node_id)
+                    with _obs_trace.use(self.tracer), self.tracer.span(
+                            "task", "task", parent_id=self._trace_parent,
+                            task_id=self.task_id, node=self.node_id):
+                        self._run_with_ctx(ctx)
+                else:
+                    self._run_with_ctx(ctx)
             finally:
                 # a task that failed or was aborted mid-spill leaves no
                 # spill file behind
@@ -215,10 +285,14 @@ class TaskExecution:
             self.finished_at = time.time()
             self.buffer.fail(self.error)
         finally:
+            if self._inflight is not None:
+                self._inflight.finish()
             for c in self._clients:
                 c.close()
 
     def _run_with_ctx(self, ctx: ExecContext):
+        ctx.tracer = self.tracer
+        ctx.inflight = self._inflight
         ctx.task_index = self.update.task_index
         ctx.n_tasks = self.update.n_tasks
         ctx.split_assignment = self.update.split_assignment
@@ -249,25 +323,76 @@ class TaskExecution:
         else:
             for batch in stream:
                 sink(batch)
+        # the sink has read every page to the host: the deferred HBO
+        # counts are ready
+        ctx.flush_observations()
+        if ctx.config.devprof == "on":
+            # reconcile this task's pool slice against the device
+            # watermark once the task's work is done
+            _devprof.activate(ctx.device)
+            _devprof.reconcile(ctx.memory_pool, plane="worker", site="task")
+        if ctx.config.collect_stats:
+            self.stats_report = self._stats_rows(f.root, ctx)
+
+    @staticmethod
+    def _stats_rows(root, ctx: ExecContext) -> list:
+        """Per-operator stats rows (collect_stats) for the coordinator's
+        EXPLAIN ANALYZE, plus the context's counters as rows."""
+        names = {}
+
+        def walk(n):
+            names[id(n)] = type(n).__name__
+            for c in n.children():
+                walk(c)
+
+        walk(root)
+        rows = [{"node": names.get(nid, "?"), **st}
+                for nid, st in ctx.node_stats.items()]
+        rows += [{"node": k, "rows": v, "batches": 0, "wall_s": 0.0}
+                 for k, v in ctx.stats.items()]
+        return rows
 
     def _make_sink(self, f: Fragment, cfg):
+        """The task's page sink; each call returns the batch's live rows,
+        which the sink reads on the host anyway to size its pages. With
+        lifecycle or inflight on, those counts are the task's progress."""
+        sink = self._make_sink_inner(f, cfg)
+        if not self._count_progress and self._inflight is None:
+            return sink
+
+        def counting_sink(b: Batch):
+            rows = sink(b)
+            if self._count_progress:
+                self.rows_emitted += rows
+                self.batches_emitted += 1
+            if self._inflight is not None:
+                self._inflight.publish("output", rows_out=rows, batches=1)
+            return rows
+
+        return counting_sink
+
+    def _make_sink_inner(self, f: Fragment, cfg):
         n_parts = self.update.n_out_partitions
         if f.output_partitioning == OUT_HASH and n_parts > 1:
             keys = tuple(f.output_keys)
             R = cfg.radix_partitions if f.radix_align else 0
 
-            def sink(b: Batch):
+            def sink(b: Batch) -> int:
                 # device-side hash, one page a consumer
                 # (PartitionedOutputOperator.partitionPage:377 analog)
                 pid = partition_ids(b, keys, n_parts)
+                # each consumer's live rows, in one host read
+                counts = torch.bincount(
+                    torch.where(b.live, pid.to(torch.int64), n_parts),
+                    minlength=n_parts + 1)[:n_parts].tolist()
                 if R <= 1:
                     for p in range(n_parts):
-                        mask = b.live & (pid == p)
-                        if bool(mask.any()):
+                        if counts[p]:
                             self.buffer.enqueue(
-                                p, serialize_batch(b.with_live(mask),
-                                                   dict_refs=True))
-                    return
+                                p, serialize_batch(
+                                    b.with_live(b.live & (pid == p)),
+                                    dict_refs=True))
+                    return sum(counts)
                 # partition-aligned exchange: the consumer breaker radix-
                 # partitions on these same keys, so split each consumer's
                 # page further by the radix id (top bits of the SAME 63-bit
@@ -276,41 +401,46 @@ class TaskExecution:
                 # re-partition sort
                 rid = radix_ids(b, keys, R)
                 for p in range(n_parts):
-                    pmask = b.live & (pid == p)
-                    if not bool(pmask.any()):
+                    if not counts[p]:
                         continue
+                    pmask = b.live & (pid == p)
                     for r in torch.unique(rid[pmask]).tolist():
                         self.buffer.enqueue(
                             p, serialize_batch(
                                 b.with_live(pmask & (rid == r)),
                                 radix=(int(r), R, keys), dict_refs=True))
+                return sum(counts)
 
             return sink
 
         if f.output_partitioning == OUT_RR and n_parts > 1:
             state = {"next": self.update.task_index}  # stagger producers
 
-            def sink(b: Batch):
+            def sink(b: Batch) -> int:
                 # page-level round robin (the reference's
                 # ArbitraryOutputBuffer: any consumer may take a page;
                 # deterministic rotation here keeps tasks balanced)
-                if b.num_live() == 0:
-                    return
+                n = b.num_live()
+                if n == 0:
+                    return 0
                 p = state["next"] % n_parts
                 state["next"] += 1
                 self.buffer.enqueue(p, serialize_batch(b, dict_refs=True))
+                return n
 
             return sink
 
-        def sink(b: Batch):
+        def sink(b: Batch) -> int:
             # gather/broadcast: one serialized page, fanned out by the buffer
-            if b.num_live() == 0:
-                return
+            n = b.num_live()
+            if n == 0:
+                return 0
             page = serialize_batch(b, dict_refs=True)
             if f.output_partitioning == OUT_BROADCAST:
                 self.buffer.enqueue(None, page)
             else:
                 self.buffer.enqueue(0, page)
+            return n
 
         return sink
 
@@ -322,7 +452,7 @@ class TaskExecution:
             self.buffer.abort(p)
 
     def info(self) -> dict:
-        return {
+        out = {
             "taskId": self.task_id,
             "state": self.state,
             "error": self.error,
@@ -330,6 +460,17 @@ class TaskExecution:
             "spooledBytes": self.buffer.spooled_bytes(),
             "sentBytes": self.buffer.sent_bytes,
         }
+        if self.stats_report is not None:
+            out["stats"] = self.stats_report
+        if self._count_progress:
+            out["rowsEmitted"] = self.rows_emitted
+            out["batchesEmitted"] = self.batches_emitted
+        return out
+
+
+# task ids are "{query_id}.{fragment}.{index}[.r{retry}]" — the greedy
+# query group absorbs any dots inside the query id itself
+_TASK_ID_RE = re.compile(r"^(.+)\.(\d+)\.(\d+)(?:\.r\d+)?$")
 
 
 class TaskManager:
@@ -337,9 +478,10 @@ class TaskManager:
 
     def __init__(self, catalog: Catalog, device: torch.device,
                  memory_pool=None, spill_manager=None, run_slots: int = 4,
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
+                 timeout_s: float = DEFAULT_TIMEOUT_S, node_id: str = ""):
         self.catalog = catalog
         self.device = device
+        self.node_id = node_id
         self.timeout_s = timeout_s
         self.memory_pool = memory_pool or MemoryPool(None)
         self.spill_manager = spill_manager or SpillManager()
@@ -362,6 +504,52 @@ class TaskManager:
                 self.memory_pool, query_id)
         return qp
 
+    def query_progress(self) -> Dict[str, dict]:
+        """Live per-query progress over lifecycle-counting tasks: rows and
+        batches emitted plus task/fragment completion, keyed by the attempt
+        query id (the coordinator's lifecycle registry resolves attempt ->
+        serving query via its alias map). Empty when no task counts."""
+        with self._lock:
+            tasks = list(self.tasks.values())
+        out: Dict[str, dict] = {}
+        frag_states: Dict[str, Dict[int, List[str]]] = {}
+        for t in tasks:
+            if not t._count_progress:
+                continue
+            m = _TASK_ID_RE.match(t.task_id)
+            qid = m.group(1) if m else t.task_id
+            fid = int(m.group(2)) if m else 0
+            d = out.setdefault(qid, {
+                "rows": 0, "batches": 0, "tasksDone": 0, "tasksTotal": 0,
+                "fragmentsDone": 0, "fragmentsTotal": 0})
+            d["rows"] += t.rows_emitted
+            d["batches"] += t.batches_emitted
+            d["tasksTotal"] += 1
+            if t.state != "running":
+                d["tasksDone"] += 1
+            frag_states.setdefault(qid, {}).setdefault(fid, []).append(
+                t.state)
+        for qid, fmap in frag_states.items():
+            out[qid]["fragmentsTotal"] = len(fmap)
+            out[qid]["fragmentsDone"] = sum(
+                1 for states in fmap.values()
+                if all(s != "running" for s in states))
+        return out
+
+    def query_inflight(self) -> Dict[str, dict]:
+        """Per-task inflight telemetry docs keyed by attempt query id ->
+        task id, for the heartbeat (`queryInflight`). Empty when no task
+        publishes."""
+        with self._lock:
+            tasks = list(self.tasks.values())
+        out: Dict[str, dict] = {}
+        for t in tasks:
+            pub = t._inflight
+            if pub is None or not pub.ops:
+                continue
+            out.setdefault(pub.query_id, {})[t.task_id] = pub.doc()
+        return out
+
     def query_memory(self) -> Dict[str, int]:
         """Live per-query reserved bytes (stale finished queries pruned)."""
         with self._lock:
@@ -375,7 +563,8 @@ class TaskManager:
             return {qid: qp.query_reserved
                     for qid, qp in self._query_pools.items()}
 
-    def update_task(self, task_id: str, update: TaskUpdate) -> dict:
+    def update_task(self, task_id: str, update: TaskUpdate,
+                    trace_token: Optional[str] = None) -> dict:
         with self._lock:
             t = self.tasks.get(task_id)
             if t is None:
@@ -383,7 +572,9 @@ class TaskManager:
                                   self._pool_for_locked(task_id),
                                   self.spill_manager,
                                   executor=self.executor,
-                                  timeout_s=self.timeout_s)
+                                  timeout_s=self.timeout_s,
+                                  trace_token=trace_token,
+                                  node_id=self.node_id)
                 self.tasks[task_id] = t
             return t.info()
 
@@ -408,6 +599,7 @@ _RESULTS_RE = re.compile(r"^/v1/task/([^/]+)/results/(\d+)/(\d+)$")
 _ACK_RE = re.compile(r"^/v1/task/([^/]+)/results/(\d+)/(\d+)/ack$")
 _BUFFER_RE = re.compile(r"^/v1/task/([^/]+)/results/(\d+)$")
 _STATUS_RE = re.compile(r"^/v1/task/([^/]+)/status$")
+_TRACE_RE = re.compile(r"^/v1/task/([^/]+)/trace$")
 _DICT_RE = re.compile(r"^/v1/dict/([0-9a-f]{64})$")
 
 
@@ -441,7 +633,8 @@ class Worker:
                                         self.memory_pool,
                                         self.spill_manager,
                                         run_slots=run_slots,
-                                        timeout_s=timeout_s)
+                                        timeout_s=timeout_s,
+                                        node_id=node_id)
         self.node_state = "active"   # active | shutting_down | shut_down
         worker = self
 
@@ -488,8 +681,9 @@ class Worker:
                     except (CodecError, KeyError, TypeError, ValueError) as e:
                         return self._json({"error": f"bad task update: {e}"},
                                           400)
-                    info = worker.task_manager.update_task(m.group(1),
-                                                           update)
+                    info = worker.task_manager.update_task(
+                        m.group(1), update,
+                        trace_token=self.headers.get(_obs_trace.TRACE_HEADER))
                     return self._json(info)
                 if self.path == "/v1/memory/revoke":
                     # cluster ladder rung: the coordinator asks this node's
@@ -537,6 +731,12 @@ class Worker:
                     if t is None:
                         return self._json({"error": "no such task"}, 404)
                     return self._json(t.info())
+                m = _TRACE_RE.match(self.path)
+                if m:
+                    t = worker.task_manager.get(m.group(1))
+                    if t is None:
+                        return self._json({"error": "no such task"}, 404)
+                    return self._json(t.tracer.to_json())
                 m = _DICT_RE.match(self.path)
                 if m:
                     # dictionary side channel: by-ref wire pages resolve
@@ -557,6 +757,19 @@ class Worker:
                     })
                 if self.path == "/v1/status":
                     return self._json(worker.status())
+                if self.path == "/v1/metrics":
+                    from presto_tpu_torch.server.metrics import (
+                        worker_metrics,
+                    )
+
+                    body = worker_metrics(worker).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
                 self._json({"error": "not found"}, 404)
 
             def do_DELETE(self):
@@ -623,7 +836,7 @@ class Worker:
 
     def status(self) -> dict:
         tasks = self.task_manager.tasks
-        return {
+        doc = {
             "nodeId": self.node_id,
             "state": self.node_state,
             "device": str(self.device),
@@ -634,6 +847,21 @@ class Worker:
             "queryMemory": self.task_manager.query_memory(),
             "spillInUseBytes": self.spill_manager.in_use_bytes,
         }
+        progress = self.task_manager.query_progress()
+        if progress:
+            # lifecycle plane: live row counts ride the heartbeat so the
+            # coordinator's progress endpoint sees mid-query state
+            doc["queryProgress"] = progress
+        inflight = self.task_manager.query_inflight()
+        if inflight:
+            # inflight plane: per-task operator watermarks; the
+            # coordinator merges them per fragment (seq-guarded, so the
+            # in-process cluster never double-counts)
+            doc["queryInflight"] = inflight
+        if _devprof.active():
+            # the device's own memory accounting rides the heartbeat
+            doc["deviceMemory"] = _devprof.device_memory_doc()
+        return doc
 
     def _announce_once(self):
         """One announcement PUT carrying this node's current state."""

@@ -31,6 +31,7 @@ a query's wait for its result by 60 s, so a hang fails one test.
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -456,8 +457,9 @@ def test_errors_and_session(cluster):
         assert row[2:4] == [str(meta.default), meta.py_type.__name__], name
     list(StatementClient(url, "reset session batch_rows", session).rows())
     assert "batch_rows" not in session.properties
-    with pytest.raises(QueryError, match="ROADMAP item 14"):
-        execute(url, "set session tracing = false")
+    traced = ClientSession()
+    list(StatementClient(url, "set session tracing = false", traced).rows())
+    assert traced.properties.get("tracing") == "false"
     bad = ClientSession()
     bad.properties["fragment_fusion"] = "false"
     with pytest.raises(QueryError, match="ROADMAP item 12"):
@@ -487,8 +489,13 @@ def test_metadata_and_explain(cluster, port_cat):
     assert rows == [["VALID"]]
     _, rows = execute(url, f"explain (type logical) {sql}")
     assert "Fragment" not in rows[0][0]
-    with pytest.raises(QueryError, match="ROADMAP item 14"):
-        execute(url, f"explain analyze {sql}")
+    _, rows = execute(url, f"explain analyze {sql}")
+    text = "\n".join(r[0] for r in rows)
+    assert "-- task execution profile --" in text
+    # the join's output rows, summed over its tasks, are the count
+    _, count = execute(url, sql)
+    assert sum(int(n.replace(",", "")) for n in re.findall(
+        r"HashJoin +rows= *([\d,]+)", text)) == int(count[0][0]), text
     with pytest.raises(QueryError, match="ROADMAP item 17"):
         execute(url, "show functions")
     part = Session(properties={"join_distribution_type": "PARTITIONED"})

@@ -101,3 +101,13 @@ def test_guard_covers_cluster_modules():
                  "presto_tpu_torch/dbapi.py",
                  "presto_tpu_torch/cli.py"):
         assert path in files, path
+
+
+def test_guard_covers_obs_modules():
+    """The observability plane and its /v1/metrics renderer are among the
+    files guarded above."""
+    files = set(_port_files())
+    for name in ("__init__", "devprof", "events", "exposition", "inflight",
+                 "lifecycle", "metrics", "runstats", "trace"):
+        assert f"presto_tpu_torch/obs/{name}.py" in files, name
+    assert "presto_tpu_torch/server/metrics.py" in files
